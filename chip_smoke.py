@@ -1,0 +1,347 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Drives the port's main path, the NOAA APT decode, on the card and fails
+(non-zero exit, no result line) on any error. Phases, in order:
+
+1. check that a CUDA device exists and print its name and power limit;
+2. build the CUDA kernel K1 (`csrc/ddc_fm_u8.cu`) from the checkout;
+3. hold K1 against its plain PyTorch version and an fp64 oracle at the
+   main path's block shape (J=34, K=151, one 20,000,000-sample block plus
+   its history) and time both with CUDA events;
+4. synthesize a 10-minute NOAA pass (1,200 APT lines, 2.46 GB of uint8 IQ)
+   on the card and decode it from a DeviceRawSource with NoaaDecoder, cold
+   and then warm, checking usefulness, sync spacing, image size and
+   content, and that K1 ran on that path; then hold K1 against its plain
+   version at the shape that decode gave it;
+5. run the command-line interface on a 30-second IQ.wav;
+6. print the kernel table as one JSON line, then the result line
+   {"ok": true, "device": {...}} last.
+
+Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import os
+import struct
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+FS = 2_048_000
+WORD_RATE = 4160.0
+OFFSET_HZ = 30_000.0
+DEV_HZ = 17_000.0
+# fp32 kernel against the fp64 oracle (the JAX suite's bar for the u8
+# kernel), and kernel against plain fp32: wrapped phase differences, whose
+# rare outliers sit where |c| is tiny and the discriminator amplifies
+# rounding (the JAX suite's distributional bars)
+ORACLE_TOL = 5e-4
+PLAIN_P999_TOL = 1e-4
+PLAIN_MAX_TOL = 2e-2
+
+# APT sync trains (40 words each, before channel A / channel B)
+SYNCA = (0, 0, 0, 0, 1, 1, 0, 0, 1, 1, 0, 0, 1, 1, 0, 0, 1, 1, 0, 0,
+         1, 1, 0, 0, 1, 1, 0, 0, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+SYNCB = (0, 0, 0, 0, 1, 1, 1, 0, 0, 1, 1, 1, 0, 0, 1, 1, 1, 0, 0, 1,
+         1, 1, 0, 0, 1, 1, 1, 0, 0, 1, 1, 1, 0, 0, 1, 1, 1, 0, 0, 0)
+
+
+def apt_line_words(image_a_row, image_b_row):
+    """One 2080-word luminance line: [syncA(40) | A content(1000) |
+    syncB(40) | B content(1000)]."""
+    line = np.empty(2080)
+    line[0:40] = np.asarray(SYNCA) * 233.0 + 11.0
+    line[40:1040] = np.resize(image_a_row, 1000)
+    line[1040:1080] = np.asarray(SYNCB) * 233.0 + 11.0
+    line[1080:2080] = np.resize(image_b_row, 1000)
+    return line
+
+
+def synth_pass_bytes(n_lines: int, device, seed: int = 0,
+                     chunk: int = 1 << 25) -> tuple[torch.Tensor, np.ndarray]:
+    """APT capture of `n_lines` lines (+0.25 s) as interleaved uint8 IQ on
+    `device`: the subcarrier AM of the line words, FM onto a 30 kHz offset
+    with the phase integral carried in fp64 from chunk to chunk, complex
+    noise of 0.05 per component, quantized like an 8-bit SDR. Returns
+    (bytes, ground-truth word lines)."""
+    lines = np.stack([apt_line_words(np.linspace(30, 220, 1000) + 10 * (i % 3),
+                                     np.linspace(220, 30, 1000))
+                      for i in range(n_lines)])
+    words = torch.as_tensor(lines.reshape(-1), dtype=torch.float64,
+                            device=device)
+    n = int((n_lines * 0.5 + 0.25) * FS)
+    out = torch.empty(2 * n, dtype=torch.uint8, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    phase0 = torch.zeros((), dtype=torch.float64, device=device)
+    for s in range(0, n, chunk):
+        e = min(n, s + chunk)
+        t = torch.arange(s, e, dtype=torch.float64, device=device) / FS
+        widx = torch.clamp((t * WORD_RATE).long(), max=words.shape[0] - 1)
+        env = 0.05 + 0.9 * words[widx] / 255.0
+        baseband = env * torch.cos(2 * np.pi * 2400.0 * t)
+        dphi = 2 * np.pi * (OFFSET_HZ / FS) + 2 * np.pi * DEV_HZ * baseband / FS
+        phase = phase0 + torch.cumsum(dphi, 0)
+        phase0 = torch.remainder(phase[-1], 2 * np.pi)
+        for k, part in enumerate((torch.cos(phase), torch.sin(phase))):
+            noisy = part + 0.05 * torch.randn(e - s, dtype=torch.float64,
+                                              device=device, generator=gen)
+            out[2 * s + k: 2 * e: 2] = torch.clamp(
+                torch.round(noisy * 90.0 + 127.5), 0, 255).to(torch.uint8)
+    return out, lines
+
+
+def check(cond, what) -> None:
+    """Fail the run (raise) unless `cond`; unlike `assert`, kept under -O."""
+    if not cond:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds of `fn()` over `reps` runs after one warm-up, timed
+    with CUDA events."""
+    fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def wrapped(d: torch.Tensor) -> torch.Tensor:
+    """|angle(exp(1j d))| of a phase difference, in fp64."""
+    d = d.double()
+    return torch.atan2(torch.sin(d), torch.cos(d)).abs()
+
+
+def phase3_compare(ddc, fe, dev) -> dict:
+    """K1 against the plain version and the fp64 oracle on the second
+    20,000,000-sample block of a synthetic capture, as DdcFmStream hands it
+    over: the previous block's last K-1 samples of bytes, then the block."""
+    from directdemod_tpu_torch import constants
+    from directdemod_tpu_torch.ops import resample as rs
+    J, K = fe.stride, fe.ntaps
+    blk = constants.PROC_CHUNKSIZE
+    raw, _ = synth_pass_bytes(80, dev, seed=1)
+    s = blk
+    off = rs.decim_phase(s, J)
+    out_len = rs.decim_count(blk, off, J)
+    seg = raw[2 * (s - (K - 1)): 2 * (2 * blk)][2 * off:]
+    _, taps_rev, rot, _ = fe.consts(dev)
+    c_prev = torch.tensor([1.0 + 0.5j], dtype=torch.complex64, device=dev)
+
+    a_k, c_k = ddc.ddc_fm_u8(seg, taps_rev, rot, c_prev, J, out_len)
+    a_p, c_p = ddc.ddc_fm_u8_plain(seg, taps_rev, rot, c_prev, J, out_len)
+    torch.cuda.synchronize()
+    d = wrapped(a_k - a_p)
+    err_max = float(d.max())
+    err_p999 = float(torch.quantile(d[: 1 << 24].float(), 0.999))
+
+    # fp64 oracle on the first, a middle and the last 4096 outputs
+    w64 = torch.as_tensor(fe.taps_mod[::-1].copy(), dtype=torch.complex128,
+                          device=dev)
+    rot64 = torch.tensor(fe.rot, dtype=torch.complex128, device=dev)
+    oracle_err = 0.0
+    for m0 in (0, out_len // 2, out_len - 4096):
+        lo = max(m0 - 1, 0)
+        b = seg[2 * lo * J: 2 * ((m0 + 4095) * J + K)].double() - 127.5
+        x = torch.complex(b[0::2], b[1::2])
+        c = x.unfold(0, K, J) @ w64
+        prev = torch.cat([c_prev.to(torch.complex128), c[:-1]]) if m0 == 0 \
+            else c[:-1]
+        cur = c if m0 == 0 else c[1:]
+        ref = torch.angle(cur * prev.conj() * rot64)
+        oracle_err = max(oracle_err, float(wrapped(a_k[m0:m0 + 4096] - ref).max()))
+        if m0 == out_len - 4096:
+            c_last_err = abs(complex(c_k.cpu()[0]) - complex(c[-1].cpu()))
+            c_last_scale = abs(complex(c[-1].cpu()))
+    print(f"phase 3: out_len {out_len}, kernel vs plain max {err_max:.3e} "
+          f"p99.9 {err_p999:.3e}, kernel vs fp64 oracle max {oracle_err:.3e}, "
+          f"c_last err {c_last_err:.3e} of |c| {c_last_scale:.3e}, "
+          f"c_last kernel vs plain {abs(complex((c_k - c_p).cpu()[0])):.3e}",
+          flush=True)
+    check(err_p999 < PLAIN_P999_TOL and err_max < PLAIN_MAX_TOL,
+          f"K1 vs plain p99.9 {err_p999} max {err_max}")
+    check(oracle_err < ORACLE_TOL, f"K1 vs fp64 oracle {oracle_err}")
+    check(c_last_err < 1e-5 * max(c_last_scale, 1.0) + 1e-2,
+          f"c_last error {c_last_err}")
+
+    ms_k = cuda_ms(lambda: ddc.ddc_fm_u8(seg, taps_rev, rot, c_prev, J, out_len), 20)
+    ms_p = cuda_ms(lambda: ddc.ddc_fm_u8_plain(seg, taps_rev, rot, c_prev, J,
+                                               out_len), 5)
+    print(f"phase 3: K1 {ms_k:.4f} ms, plain {ms_p:.4f} ms per "
+          f"{blk}-sample block ({blk / ms_k / 1e6:.2f} Gsamp/s kernel, "
+          f"{blk / ms_p / 1e6:.2f} Gsamp/s plain) on {card_line()}", flush=True)
+    del raw
+    return {"max_abs_err": err_max, "ms": ms_k, "plain_ms": ms_p}
+
+
+def phase4_decode(ddc, fe, dev) -> int:
+    """Synthesize a 10-minute pass on the card and decode it from the bytes
+    held there, twice: a cold run (first use of cuFFT plans, cuDNN and the
+    allocator in this process) and a warm one. Then hold K1 against its
+    plain version at the shape the decode gave it. Returns the warm run's
+    K1 launch count."""
+    from directdemod_tpu_torch import constants
+    from directdemod_tpu_torch.io.sources import DeviceRawSource
+    from directdemod_tpu_torch.models.noaa import NoaaDecoder
+    from directdemod_tpu_torch.ops import resample as rs
+    t0 = time.perf_counter()
+    raw, truth = synth_pass_bytes(1200, dev, seed=0)
+    torch.cuda.synchronize()
+    n = raw.shape[0] // 2
+    print(f"phase 4: synthesized {n} samples ({raw.shape[0] / 1e9:.2f} GB) "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    src = DeviceRawSource(raw, FS)
+    gt = truth[0][40:1040]
+    for run in ("cold", "warm"):
+        dec = NoaaDecoder(src, OFFSET_HZ, device=dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ddc.LAUNCHES = 0
+        t0 = time.perf_counter()
+        useful = dec.useful
+        sa, sb = dec.get_crude_sync()
+        img = dec.get_image()
+        acc = dec.get_accurate_sync(use_norm_correlate=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ddc.LAUNCHES
+        rate = dec._sync_rate
+        cors = [np.corrcoef(img[r, :1040].astype(np.float64)[60:1000],
+                            gt[60:1000])[0, 1] for r in range(img.shape[0])]
+        stages = {k: round(v, 4) for k, v in dec.stage_seconds.items()}
+        print(f"phase 4 ({run}): decode of a {n / FS:.1f} s pass in {wall:.3f} s "
+              f"wall ({n / FS / wall:.1f}x real time), stages (CUDA events) "
+              f"{json.dumps(stages)}, peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, useful "
+              f"{useful}, syncs {len(sa)}/{len(sb)}, image {img.shape}, median "
+              f"row corr {np.median(cors):.4f}, accurate syncs "
+              f"{len(acc[0])}/{len(acc[4])}, K1 launches {launches} "
+              f"on {card_line()}", flush=True)
+        check(useful == 1, "useful == 1")
+        for syncs in (sa, sb):
+            check(np.all(np.abs(np.diff(syncs) - 0.5 * rate) < 5),
+                  "crude syncs 0.5 s apart within 5 samples")
+        check(img.shape[0] >= 1150 and img.shape[1] == 2080, f"image {img.shape}")
+        check(np.median(cors) > 0.9, "median row correlation > 0.9")
+        check(len(acc[1]) > 0 and np.all(np.abs(np.asarray(acc[1]) - 0.5 * FS) < 300),
+              "accurate syncs 0.5 s apart within 300 samples")
+        check(launches > 0, "the decode launched K1")
+
+    # K1 at the decode's own shape: the remainder after block 0 in one call
+    J, K = fe.stride, fe.ntaps
+    b0 = constants.PROC_CHUNKSIZE
+    off = rs.decim_phase(b0, J)
+    out_len = rs.decim_count(n - b0, off, J)
+    seg = raw[2 * (b0 - (K - 1) + off): 2 * n]
+    _, taps_rev, rot, _ = fe.consts(dev)
+    c_prev = torch.tensor([1.0 + 0.5j], dtype=torch.complex64, device=dev)
+    a_k, _ = ddc.ddc_fm_u8(seg, taps_rev, rot, c_prev, J, out_len)
+    a_p, _ = ddc.ddc_fm_u8_plain(seg, taps_rev, rot, c_prev, J, out_len)
+    d = wrapped(a_k - a_p)
+    err_max = float(d.max())
+    err_p999 = float(torch.quantile(d[: 1 << 24].float(), 0.999))
+    del a_k, a_p, d
+    ms_k = cuda_ms(lambda: ddc.ddc_fm_u8(seg, taps_rev, rot, c_prev, J, out_len), 5)
+    ms_p = cuda_ms(lambda: ddc.ddc_fm_u8_plain(seg, taps_rev, rot, c_prev, J,
+                                               out_len), 2)
+    print(f"phase 4: K1 at the decode's shape ({n - b0} samples, {out_len} "
+          f"outputs): vs plain max {err_max:.3e} p99.9 {err_p999:.3e}; K1 "
+          f"{ms_k:.4f} ms ({(n - b0) / ms_k / 1e6:.2f} Gsamp/s, "
+          f"{2 * (n - b0) / ms_k / 1e6:.1f} GB/s of bytes), plain {ms_p:.4f} ms "
+          f"on {card_line()}", flush=True)
+    check(err_p999 < PLAIN_P999_TOL and err_max < PLAIN_MAX_TOL,
+          f"K1 vs plain p99.9 {err_p999} max {err_max}")
+    return launches
+
+
+def write_iq_wav(path: str, raw: np.ndarray) -> None:
+    with open(path, "wb") as f:
+        f.write(b"RIFF")
+        f.write(struct.pack("<I", 36 + len(raw)))
+        f.write(b"WAVEfmt ")
+        f.write(struct.pack("<IHHIIHH", 16, 1, 2, FS, FS * 2, 2, 8))
+        f.write(b"data")
+        f.write(struct.pack("<I", len(raw)))
+        f.write(raw.tobytes())
+
+
+def phase5_cli(dev) -> None:
+    """The CLI on a 30-second IQ.wav synthesized on the card."""
+    raw, _ = synth_pass_bytes(60, dev, seed=2)
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        name = "SDRSharp_20170830_073907Z_137590000Hz_IQ.wav"
+        write_iq_wav(os.path.join(tmp, name), raw.cpu().numpy())
+        del raw
+        env = dict(os.environ, PYTHONPATH=root)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "directdemod_tpu_torch", "-c", "137590000",
+             "-f", "137620000", "-d", "noaa", "-sync", "-r", "rep.json", name],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        sys.stderr.write(proc.stderr[-4000:])
+        check(proc.returncode == 0, f"CLI exit code {proc.returncode}")
+        with open(os.path.join(tmp, "rep.json")) as f:
+            rep = json.load(f)
+        ch = rep["channels"][0]
+        stem = name.split(".")[0]
+        for f in (stem + "_f1.png", stem + "_f1.csv"):
+            check(os.path.exists(os.path.join(tmp, f)), f"{f} written")
+        check(ch["usefulness"] == 1 and ch["device"].startswith("cuda"), f"report {ch}")
+        print(f"phase 5: CLI rc 0 in {wall:.1f} s, decodeSeconds "
+              f"{ch['decodeSeconds']}, files {ch['filesCreated']}", flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    print(card_line(), flush=True)
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}", flush=True)
+
+    from directdemod_tpu_torch.models.frontend import DdcFm
+    from directdemod_tpu_torch.ops import ddc, design
+    t0 = time.perf_counter()
+    ddc.build()
+    print(f"phase 2: K1 built and loaded in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    fe = DdcFm(FS, OFFSET_HZ, design.blackmanharris(151), 60_000)
+    k1 = phase3_compare(ddc, fe, dev)
+    launches = phase4_decode(ddc, fe, dev)
+    phase5_cli(dev)
+
+    print(json.dumps({"kernels": [{
+        "name": "ddc_fm_u8", "route": "cuda",
+        "source": "directdemod_tpu_torch/csrc/ddc_fm_u8.cu",
+        "replaces": "directdemod_tpu/ops/pallas_ddc.py:148",
+        "launches": launches, **k1}]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

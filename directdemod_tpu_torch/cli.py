@@ -1,0 +1,234 @@
+"""Command-line interface of the port.
+
+Port of `directdemod_tpu/cli.py:23-302` for the NOAA APT decoder: the same
+getopt grammar and its quirks (`-sync` parses as `-s ync`, `-noimage` as
+`-n oimage`, `-ce` as `-c e`, the centre frequency then coming from the file
+name), the same per-channel fence and the same JSON report (`-r`), with
+`decodeSeconds`, `resident` and the `device` the channel ran on. The decode
+runs on the first CUDA device when there is one, else on the CPU. Decoders
+and flags the port does not have yet exit non-zero with "not yet ported".
+"""
+from __future__ import annotations
+
+import getopt
+import json
+import logging
+import sys
+from time import gmtime, perf_counter, strftime
+
+import torch
+
+from . import constants
+from .io import sinks, sources
+
+NOT_PORTED_FLAGS = ("--map", "--tle", "--freqshift", "--mesh", "--segments")
+
+
+def usage(err: str = "") -> None:
+    if err:
+        print("ERROR :", err)
+    prog = sys.argv[0]
+    print(f"""Usage: {prog} [options] <IQ.wav>
+
+Common options:
+\t-c <Fc in Hz> : centre frequency of the recording
+\t-ce : extract centre frequency from file name
+\t-a <F in Hz> : sampling frequency of the recording
+\t-q : switch I and Q channels
+\t-r <filename> : generate report in JSON
+\t-h : print this
+
+Channels:
+\t-f <in Hz> : For every channel add a -f flag with respective frequency
+\tOptions for each channel: (if set, must follow -f of the respective channel)
+\t\t-d <str> : decoder for this channel (noaa)
+\t\t-b <in Hz> : channel bandwidth (in order)
+\t\t-o <str> : output file names (in order)
+\t\t-s <in sample#> : starts of signals (in order)
+\t\t-e <in sample#> : ends of signals (in order)
+
+Decoder flags:
+\t-d noaa : APT decoder (-sync writes sync csv, -noimage skips the image)
+\t--resident : copy the capture once into device memory and decode from
+\t             there (falls back to the blocked feed when it does not fit)
+""")
+
+
+def default_device() -> torch.device:
+    return torch.device("cuda", torch.cuda.current_device()) \
+        if torch.cuda.is_available() else torch.device("cpu")
+
+
+def _make_resident(sigsrc, device: torch.device):
+    """The (already windowed) file source's bytes as a DeviceRawSource on
+    `device`, or None (with a log line) when they should not go there: on a
+    card the bytes may take at most half of its free memory, the rest being
+    the decode's working set."""
+    n = int(sigsrc.length)
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        if 2 * n > free // 2:
+            logging.warning("--resident: capture is %.2f GB of raw bytes, "
+                            "over half of the %.2f GB free on %s; using the "
+                            "blocked feed", 2 * n / 2**30, free / 2**30, device)
+            return None
+    return sources.DeviceRawSource.from_host_bytes(
+        sigsrc.read_raw(0, n), sigsrc.sampFreq, device)
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(message)s")
+
+    try:
+        optlist, args = getopt.getopt(
+            argv, "c:f:s:e:ho:qn:b:d:r:a:",
+            ["help", "map", "tle=", "freqshift", "mesh=", "segments=",
+             "resident"])
+    except getopt.GetoptError as e:
+        usage(str(e))
+        return 1
+
+    flags = [o[0] for o in optlist]
+    if "-h" in flags or "--help" in flags:
+        usage()
+        return 0
+    not_ported = [f for f in flags if f in NOT_PORTED_FLAGS]
+    if not_ported:
+        usage(f"{', '.join(not_ported)}: not yet ported")
+        return 1
+    if len(args) != 1:
+        usage("Invalid argument: filename")
+        return 1
+
+    resident = "--resident" in flags
+    calc_sync = any(o == ("-s", "ync") for o in optlist)
+    calc_image = not any(o == ("-n", "oimage") for o in optlist)
+    report_file = next((v for k, v in optlist if k == "-r"), None)
+    given_rate = next((int(v) for k, v in optlist if k == "-a"), None)
+
+    freqs = [int(v) for k, v in optlist if k == "-f"]
+    starts = [int(v) for k, v in optlist if k == "-s" and v != "ync"]
+    ends = [int(v) for k, v in optlist if k == "-e"]
+    outs = [v for k, v in optlist if k == "-o"]
+    bandwidths = [int(v) for k, v in optlist if k == "-b"]
+    decoders = [v for k, v in optlist if k == "-d"]
+
+    if not freqs:
+        freqs = [None]
+    if len(freqs) != len(decoders):
+        usage("Every -f channel must be accompanied by a decoder")
+        return 1
+    if max(len(starts), len(ends), len(outs), len(bandwidths)) > len(freqs):
+        usage("number of starts/ends/outfilenames cannot be greater than frequencies given")
+        return 1
+    other = sorted(set(decoders) - {"noaa"})
+    if other:
+        usage(f"decoder {', '.join(other)}: not yet ported")
+        return 1
+    for lst in (starts, ends, outs, bandwidths):
+        lst.extend([None] * (len(freqs) - len(lst)))
+
+    file_name = args[0]
+    try:
+        sigsrc = sources.open_source(file_name, given_rate)
+    except ValueError as e:
+        usage(str(e))
+        return 1
+    device = default_device()
+
+    report = {
+        "inFileName": file_name,
+        "timeOfExec": strftime("%Y-%m-%d %H:%M:%S", gmtime()),
+        "invIQ": "-q" in flags,
+        "channels": [],
+    }
+
+    for i in range(len(freqs)):
+        try:
+            entry = {"frequency": freqs[i], "bandwidth": bandwidths[i],
+                     "decoder": decoders[i], "startFlag": starts[i],
+                     "endFlag": ends[i], "outFileName": outs[i]}
+            logging.info("Beginning decoding of frequency %d of %d", i + 1, len(freqs))
+
+            freq_offset = constants.IQ_FREQOFFSET
+            if freqs[i] is not None:
+                explicit_c = [v for k, v in optlist if k == "-c" and v != "e"]
+                if explicit_c:
+                    freq_offset = freqs[i] - int(explicit_c[0])
+                    report["centreFreq"] = explicit_c[0]
+                else:
+                    token = [t for t in file_name.split("_") if t[-2:] == "Hz"][0][:-2]
+                    if token[-1] == "k":
+                        centre = int(token[:-1]) * 1000
+                    else:
+                        centre = int(token)
+                    freq_offset = freqs[i] - centre
+                    report["centreFreq"] = centre
+            if "-q" in flags:
+                freq_offset *= -1
+            entry["offset"] = freq_offset
+            logging.info("Offset for this frequency: %f Hz", freq_offset)
+
+            sigsrc.limit(starts[i], ends[i])
+            src_i = sigsrc
+            if resident:
+                t_up = perf_counter()
+                wrapped = _make_resident(sigsrc, device)
+                if wrapped is not None:
+                    src_i = wrapped
+                    entry["residentUploadSeconds"] = round(
+                        perf_counter() - t_up, 3)
+            t_dec = perf_counter()
+            entry["resident"] = src_i is not sigsrc
+            entry["device"] = str(device)
+            stem = file_name.split(".")[0]
+
+            entry["filesCreated"] = []
+            img_file = f"{stem}_f{i + 1}.png"
+            color_file = f"{stem}_f{i + 1}_color.png"
+            csv_file = f"{stem}_f{i + 1}.csv"
+            if outs[i] is not None:
+                img_file, csv_file = outs[i] + ".png", outs[i] + ".csv"
+                color_file = outs[i] + "_color.png"
+
+            from .models.noaa import NoaaDecoder
+            dec = NoaaDecoder(src_i, freq_offset, bandwidths[i], device=device)
+            if calc_image and dec.useful == 1:
+                sinks.write_image(img_file, dec.get_image())
+                entry["filesCreated"].append(img_file)
+                ida, idb = dec.channel_id
+                if ida is not None and idb is not None:
+                    logging.info("NOAA channel A id: %d, channel B id: %d", ida, idb)
+                if ida == 2 and idb == 4:
+                    sinks.write_image(color_file, dec.get_color())
+                    entry["filesCreated"].append(color_file)
+                else:
+                    logging.info("image ineligible for false color")
+            if calc_sync and dec.useful == 1:
+                syncs = dec.get_accurate_sync(use_norm_correlate=True)
+                sinks.write_csv(csv_file, syncs,
+                                titles=["syncA", "diffSyncA", "qualityA",
+                                        "TimeSyncA", "syncB", "diffSyncB",
+                                        "qualityB", "TimeSyncB"])
+                entry["filesCreated"].append(csv_file)
+            if dec.useful == 0:
+                logging.info("No NOAA data was found at this frequency")
+            entry["usefulness"] = dec.useful
+            entry["syncDetect"] = calc_sync
+            entry["image"] = calc_image
+            entry["decodeSeconds"] = round(perf_counter() - t_dec, 3)
+            report["channels"].append(entry)
+        except Exception as e:  # per-channel fence (ref main.py:347-349)
+            logging.exception("An error occurred during decoding of frequency "
+                              "%d of %d: %s", i + 1, len(freqs), e)
+
+    if report_file is not None:
+        with open(report_file, "w") as f:
+            json.dump(report, f)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,42 @@
+"""AM envelope demodulation.
+
+Port of `directdemod_tpu/ops/am.py:16-67`: ``abs(hilbert(sig))``, applied
+per fixed-size block with no carried state (the reference's chunked AM
+demod, block = 240000); the blockwise semantics is part of the numeric
+contract. Full blocks run as one batched FFT, the remainder as its own.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def analytic(x: torch.Tensor) -> torch.Tensor:
+    """scipy.signal.hilbert for a real signal along the last axis."""
+    n = x.shape[-1]
+    X = torch.fft.fft(x, dim=-1)
+    h = torch.zeros(n, dtype=x.dtype, device=x.device)
+    h[0] = 1.0
+    if n % 2 == 0:
+        h[n // 2] = 1.0
+        h[1:n // 2] = 2.0
+    else:
+        h[1:(n + 1) // 2] = 2.0
+    return torch.fft.ifft(X * h, dim=-1)
+
+
+def envelope(x: torch.Tensor) -> torch.Tensor:
+    """|hilbert(x)| along the last axis."""
+    return analytic(x).abs()
+
+
+def envelope_blocked(x: torch.Tensor, block: int) -> torch.Tensor:
+    """Envelope per `block`-sample block of a 1-D signal, no cross-block
+    state."""
+    n = x.shape[0]
+    nfull = n // block
+    out = []
+    if nfull:
+        out.append(envelope(x[: nfull * block].reshape(nfull, block)).reshape(-1))
+    if n - nfull * block:
+        out.append(envelope(x[nfull * block:]))
+    return out[0] if len(out) == 1 else torch.cat(out)

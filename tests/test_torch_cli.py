@@ -1,0 +1,157 @@
+"""The port's command line (`directdemod_tpu_torch.cli`) for `-d noaa`: the
+reference's flag grammar and quirks, the JSON report, and the products held
+against the JAX package's CLI on the same IQ.wav (image within one uint8
+level on under 1 % of pixels, accurate syncs within +/-1 sample; see
+tests/test_torch_noaa.py for why)."""
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from directdemod_tpu import cli as jcli
+from directdemod_tpu_torch import cli
+from tests.apt_synth import synthesize
+from tests.test_cli import _write_wav
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NAME = "SDRSharp_20170830_073907Z_137590000Hz_IQ.wav"
+
+
+@pytest.fixture(scope="module")
+def noaa_wav(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("cli") / NAME)
+    iq, _ = synthesize(n_lines=12, snr_db=20)
+    _write_wav(path, iq)
+    return path
+
+
+def _csv_columns(path):
+    rows = open(path).read().strip().splitlines()
+    header = rows[0].split(",")[:-1]
+    cols = {h: [] for h in header}
+    for r in rows[1:]:
+        for h, v in zip(header, r.split(",")[:-1]):
+            if v not in ("", "None"):
+                cols[h].append(float(v))
+    return cols
+
+
+def test_cli_matches_jax_cli(noaa_wav, tmp_path, monkeypatch):
+    """Same arguments to both CLIs: the same report entries, an image within
+    tolerance and the same sync CSV within +/-1 sample."""
+    monkeypatch.chdir(tmp_path)
+    outs, reps = {}, {}
+    for name, main in (("port", cli.main), ("jax", jcli.main)):
+        outs[name] = str(tmp_path / name)
+        reps[name] = str(tmp_path / f"{name}.json")
+        rc = main(["-c", "137590000", "-f", "137620000", "-d", "noaa",
+                   "-o", outs[name], "-sync", "-r", reps[name], noaa_wav])
+        assert rc == 0
+    port = json.load(open(reps["port"]))
+    ref = json.load(open(reps["jax"]))
+    assert port["centreFreq"] == ref["centreFreq"] and port["invIQ"] == ref["invIQ"]
+    p, r = port["channels"][0], ref["channels"][0]
+    for key in ("frequency", "offset", "usefulness", "syncDetect", "image",
+                "resident", "decoder"):
+        assert p[key] == r[key], key
+    assert p["device"] == "cpu" and p["decodeSeconds"] > 0
+    assert [os.path.basename(f) for f in p["filesCreated"]] == \
+        [os.path.basename(f).replace("jax", "port") for f in r["filesCreated"]]
+    a = np.asarray(Image.open(outs["port"] + ".png")).astype(np.int64)
+    b = np.asarray(Image.open(outs["jax"] + ".png")).astype(np.int64)
+    assert a.shape == b.shape
+    assert np.abs(a - b).max() <= 1 and np.mean(a != b) < 0.01
+    cp, cj = _csv_columns(outs["port"] + ".csv"), _csv_columns(outs["jax"] + ".csv")
+    assert list(cp) == list(cj) and len(cp) == 8
+    for col in ("syncA", "syncB"):
+        assert len(cp[col]) == len(cj[col]) > 0
+        assert np.max(np.abs(np.subtract(cp[col], cj[col]))) <= 1
+
+
+def test_cli_sync_flag_quirk(noaa_wav, tmp_path):
+    """-sync parses as ('-s', 'ync') and is not taken as a start index;
+    -noimage as ('-n', 'oimage')."""
+    report = str(tmp_path / "r.json")
+    out = str(tmp_path / "o2")
+    rc = cli.main(["-c", "137590000", "-f", "137620000", "-d", "noaa",
+                   "-o", out, "-sync", "-noimage", "-r", report, noaa_wav])
+    assert rc == 0
+    ch = json.load(open(report))["channels"][0]
+    assert ch["syncDetect"] is True and ch["image"] is False
+    assert ch["startFlag"] is None
+    assert out + ".csv" in ch["filesCreated"]
+    assert not os.path.exists(out + ".png")
+    assert open(out + ".csv").readline().count(",") == 8
+
+
+def test_cli_iq_swap_negates_offset(noaa_wav, tmp_path):
+    report = str(tmp_path / "r.json")
+    assert cli.main(["-q", "-c", "137590000", "-f", "137620000", "-d", "noaa",
+                     "-noimage", "-r", report, noaa_wav]) == 0
+    rep = json.load(open(report))
+    assert rep["invIQ"] is True and rep["channels"][0]["offset"] == -30000
+
+
+def test_cli_failing_channel_is_fenced(noaa_wav, tmp_path):
+    """A channel that fails (a start past the capture) does not kill the
+    run: the report is written, without the channel."""
+    report = str(tmp_path / "r.json")
+    rc = cli.main(["-c", "137590000", "-f", "137620000", "-d", "noaa",
+                   "-s", "99999999999", "-r", report, noaa_wav])
+    assert rc == 0
+    assert json.load(open(report))["channels"] == []
+
+
+def test_cli_resident_equals_blocked(noaa_wav, tmp_path):
+    """--resident copies the capture into a DeviceRawSource and decodes it
+    there; the image equals the blocked feed's bit for bit."""
+    pngs = []
+    for extra in ([], ["--resident"]):
+        out = str(tmp_path / f"o{len(extra)}")
+        rep = str(tmp_path / f"r{len(extra)}.json")
+        assert cli.main(["-c", "137590000", "-f", "137620000", "-d", "noaa",
+                         "-o", out, "-r", rep] + extra + [noaa_wav]) == 0
+        ch = json.load(open(rep))["channels"][0]
+        assert ch["usefulness"] == 1 and ch["resident"] is bool(extra)
+        pngs.append(np.asarray(Image.open(out + ".png")))
+    assert np.array_equal(pngs[0], pngs[1])
+
+
+def test_cli_noise_only_capture(tmp_path):
+    rng = np.random.default_rng(0)
+    n = 2048000
+    iq = (0.3 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))).astype(np.complex64)
+    path = str(tmp_path / NAME)
+    _write_wav(path, iq, scale=60.0)
+    report = str(tmp_path / "r.json")
+    out = str(tmp_path / "noise_out")
+    assert cli.main(["-c", "137590000", "-f", "137620000", "-d", "noaa",
+                     "-o", out, "-r", report, path]) == 0
+    assert json.load(open(report))["channels"][0]["usefulness"] == 0
+    assert not os.path.exists(out + ".png")
+
+
+@pytest.mark.parametrize("args", [
+    ["-f", "137620000", "-d", "afsk1200"],
+    ["-f", "137620000", "-d", "funcube"],
+    ["-f", "137620000", "-d", "meteor"],
+    ["-f", "137620000", "-d", "noaa", "--map"],
+    ["-f", "137620000", "-d", "noaa", "--mesh=2"],
+    ["-f", "137620000", "-d", "noaa", "--segments=4"],
+])
+def test_cli_not_yet_ported_exits_nonzero(noaa_wav, args, capsys):
+    assert cli.main(["-c", "137590000"] + args + [noaa_wav]) != 0
+    assert "not yet ported" in capsys.readouterr().out
+
+
+def test_python_m_entry_point():
+    proc = subprocess.run([sys.executable, "-m", "directdemod_tpu_torch", "-h"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "Usage" in proc.stdout

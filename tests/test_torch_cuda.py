@@ -1,0 +1,138 @@
+"""The port on a CUDA card: K1 against its plain version, and the card's
+front end and NOAA decode against the same code on the CPU.
+
+Every test here needs a card and skips without one. The file imports no
+jax, so on a machine without jax it runs alone:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+
+Tolerances: K1 and its plain version are both fp32 and sum in different
+orders, so wrapped phase differences are held to the JAX suite's bars for
+fp32 phase outputs (99.9th percentile < 1e-4, max < 2e-2); decodes on the
+card and on the CPU to the bars of tests/test_torch_noaa.py (equal crude
+syncs, image within one uint8 level on under 1 % of pixels, accurate syncs
+within +/-1 sample)."""
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from chip_smoke import FS, synth_pass_bytes  # noqa: E402
+from directdemod_tpu_torch import constants  # noqa: E402
+from directdemod_tpu_torch.io import sources  # noqa: E402
+from directdemod_tpu_torch.models.frontend import DdcFm, DdcFmStream  # noqa: E402
+from directdemod_tpu_torch.models.noaa import NoaaDecoder  # noqa: E402
+from directdemod_tpu_torch.ops import ddc, design  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _fe():
+    return DdcFm(FS, 30000, design.blackmanharris(151), 60000)
+
+
+def _phase_close(a, b):
+    d = np.abs(np.angle(np.exp(1j * (np.asarray(a, np.float64) - np.asarray(b)))))
+    assert np.percentile(d, 99.9) < 1e-4 and d.max() < 2e-2, (
+        np.percentile(d, 99.9), d.max())
+
+
+@pytest.mark.parametrize("out_len", [1, 127, 128, 129, 5000, 100_003])
+def test_kernel_matches_plain(dev, out_len):
+    fe = _fe()
+    j, k = fe.stride, fe.ntaps
+    rng = np.random.default_rng(out_len)
+    raw = torch.from_numpy(rng.integers(0, 256, 2 * ((out_len - 1) * j + k))
+                           .astype(np.uint8)).to(dev)
+    _, taps_rev, rot, _ = fe.consts(dev)
+    cp = torch.tensor([1 + 0.5j], dtype=torch.complex64, device=dev)
+    before = ddc.LAUNCHES
+    a_k, c_k = ddc.ddc_fm_u8(raw, taps_rev, rot, cp, j, out_len)
+    a_p, c_p = ddc.ddc_fm_u8_plain(raw, taps_rev, rot, cp, j, out_len)
+    torch.cuda.synchronize()
+    assert ddc.LAUNCHES == before + 1
+    assert a_k.shape == (out_len,) and a_k.device == raw.device
+    _phase_close(a_k.cpu(), a_p.cpu())
+    assert abs(complex((c_k - c_p).cpu()[0])) < 1e-5 * abs(complex(c_p.cpu()[0])) + 1e-2
+
+
+def test_kernel_rejects_mixed_devices(dev):
+    fe = _fe()
+    j, k = fe.stride, fe.ntaps
+    raw = torch.zeros(2 * (9 * j + k), dtype=torch.uint8, device=dev)
+    _, taps_rev, rot, _ = fe.consts("cpu")
+    cp = torch.zeros(1, dtype=torch.complex64, device=dev)
+    with pytest.raises(ValueError):
+        ddc.ddc_fm_u8(raw, taps_rev, rot.to(dev), cp, j, 10)
+
+
+def test_blocked_stream_from_a_file_matches_cpu(dev, tmp_path):
+    """The pinned-buffer feed of an IQDat file to the card, blocks after the
+    first through the kernel, against the same stream on the CPU."""
+    n = 1_300_017
+    raw = np.random.default_rng(1).integers(0, 256, 2 * n).astype(np.uint8)
+    p = tmp_path / "c.dat"
+    raw.tofile(p)
+    fe = _fe()
+    before = ddc.LAUNCHES
+    got, rate = fe.process(sources.IQDat(str(p), FS), block_size=300_000,
+                           device=dev)
+    assert ddc.LAUNCHES - before == 4          # every block after block 0
+    ref, _ = fe.process(sources.IQDat(str(p), FS), block_size=300_000)
+    assert rate == fe.out_rate and got.shape == ref.shape
+    _phase_close(got, ref)
+
+
+def test_stream_carry_moves_between_devices(dev):
+    """A stream started on the CPU hands its carry to one on the card."""
+    n_blk = 200_000
+    raw = torch.from_numpy(np.random.default_rng(2).integers(0, 256, 6 * n_blk)
+                           .astype(np.uint8))
+    fe = _fe()
+    cpu = DdcFmStream(fe)
+    ref = [cpu.step(raw[2 * i * n_blk: 2 * (i + 1) * n_blk], i * n_blk)
+           for i in range(3)]
+    first = DdcFmStream(fe)
+    first.step(raw[: 2 * n_blk], 0)
+    card = DdcFmStream(fe, dev)
+    card.load_state(first.hist.numpy(), first.c_prev.numpy(),
+                    first.raw_hist.numpy())
+    for i in (1, 2):
+        got = card.step(raw[2 * i * n_blk: 2 * (i + 1) * n_blk].to(dev), i * n_blk)
+        _phase_close(got.cpu(), ref[i])
+
+
+def test_noaa_decode_on_the_card_matches_cpu(dev, monkeypatch):
+    """A 24-line pass held on the card (block 0 shortened so the resident
+    front end runs the kernel over the remainder) decodes as on the CPU."""
+    monkeypatch.setattr(constants, "PROC_CHUNKSIZE", 4_000_000)
+    raw, truth = synth_pass_bytes(24, dev, seed=3)
+    out = {}
+    for where, data in (("cuda", raw), ("cpu", raw.cpu())):
+        before = ddc.LAUNCHES
+        dec = NoaaDecoder(sources.DeviceRawSource(data, FS), 30000)
+        out[where] = (dec.useful, dec.get_crude_sync(), dec.get_image(),
+                      dec.get_accurate_sync(), ddc.LAUNCHES - before)
+    useful, (sa, sb), img, acc, launches = out["cuda"]
+    r_useful, (ra, rb), r_img, r_acc, r_launches = out["cpu"]
+    assert launches == 1 and r_launches == 0
+    assert useful == r_useful == 1
+    assert np.array_equal(sa, ra) and np.array_equal(sb, rb)
+    assert img.shape == r_img.shape == (24, 2080)
+    d = np.abs(img.astype(np.int64) - r_img.astype(np.int64))
+    assert d.max() <= 1 and np.mean(d > 0) < 0.01
+    for i in (0, 4):
+        assert len(acc[i]) == len(r_acc[i]) > 0
+        assert np.max(np.abs(np.subtract(acc[i], r_acc[i]))) <= 1
