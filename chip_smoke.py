@@ -3,22 +3,35 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the NOAA APT decode, on the card and fails
-(non-zero exit, no result line) on any error. Phases, in order:
+Drives the port's two decode paths, NOAA APT and AFSK1200/APRS, on the
+card and fails (non-zero exit, no result line) on any error. Phases, in
+order:
 
 1. check that a CUDA device exists and print its name and power limit;
-2. build the CUDA kernel K1 (`csrc/ddc_fm_u8.cu`) from the checkout;
+2. build the CUDA kernels K1 (`csrc/ddc_fm_u8.cu`) and K2
+   (`csrc/lookahead_walk.cu`) from the checkout, both compilers at once;
 3. hold K1 against its plain PyTorch version and an fp64 oracle at the
-   main path's block shape (J=34, K=151, one 20,000,000-sample block plus
+   NOAA path's block shape (J=34, K=151, one 20,000,000-sample block plus
    its history) and time both with CUDA events;
 4. synthesize a 10-minute NOAA pass (1,200 APT lines, 2.46 GB of uint8 IQ)
    on the card and decode it from a DeviceRawSource with NoaaDecoder, cold
    and then warm, checking usefulness, sync spacing, image size and
    content, and that K1 ran on that path; then hold K1 against its plain
    version at the shape that decode gave it;
-5. run the command-line interface on a 30-second IQ.wav;
-6. print the kernel table as one JSON line, then the result line
-   {"ok": true, "device": {...}} last.
+5. run the command-line interface on a 30-second NOAA IQ.wav;
+6. hold K1 against its plain version and the fp64 oracle at the AFSK
+   path's block shape (J=92), as phase 3 does;
+7. hold K2 against its plain version, event for event, on a stress input
+   at delta 0 and delta 0.1, and time both;
+8. synthesize a 10-minute APRS capture (1,228,800,000 samples, 2.46 GB of
+   uint8 IQ, about 1,040 frames) on the card and decode it from a
+   DeviceRawSource with Afsk1200Decoder, cold and then warm, checking that
+   every planted frame comes back CRC-valid with its payload and that K1
+   and K2 ran on that path; then hold K2 against its plain version on the
+   first 2^21 samples of that decode's own edge strength;
+9. run the command-line interface on a 30-second APRS IQ.wav;
+10. print the kernel table as one JSON line, then the result line
+    {"ok": true, "device": {...}} last.
 
 Imports nothing of JAX.
 """
@@ -99,6 +112,91 @@ def synth_pass_bytes(n_lines: int, device, seed: int = 0,
     return out, lines
 
 
+APRS_OFFSET_HZ = 12_000.0
+APRS_DEV_HZ = 3_500.0
+APRS_NOISE = 0.02
+BAUD = 1200
+MARK_HZ, SPACE_HZ = 1200, 2200
+AX25_FLAG = [0, 1, 1, 1, 1, 1, 1, 0]
+
+
+def ax25_frame_bits(info: str) -> list:
+    """Unstuffed AX.25 UI frame bits, each byte LSB first: destination
+    APRS, source N0CALL, control 0x03, PID 0xF0, the info field, FCS."""
+    from directdemod_tpu_torch.ops import crc
+    hdr = (bytes((ord(c) << 1) & 0xFF for c in "APRS  ") + bytes([0x60])
+           + bytes((ord(c) << 1) & 0xFF for c in "N0CALL") + bytes([0x61]))
+    body = hdr + bytes([0x03, 0xF0]) + info.encode()
+    bits = [(byte >> i) & 1 for byte in body for i in range(8)]
+    return bits + [int(c) for c in crc.fcs_crc16_bits(bits)]
+
+
+def stuff_bits(bits: list) -> list:
+    """HDLC bit stuffing: a 0 after every run of five 1s."""
+    out, run = [], 0
+    for b in bits:
+        out.append(b)
+        run = run + 1 if b == 1 else 0
+        if run == 5:
+            out.append(0)
+            run = 0
+    return out
+
+
+def aprs_levels(seconds: float) -> tuple[np.ndarray, list]:
+    """NRZI baud levels of an APRS session `seconds` long: 80 idle marks,
+    then frames with 30-byte payloads, each between three flags on either
+    side, 240 idle bauds between frames, idle marks to the end. Returns
+    (levels, the payloads in order)."""
+    n_bauds = int(round(seconds * BAUD))
+    wire, infos = AX25_FLAG * 3, []
+    while True:
+        info = f"chip smoke APRS frame {len(infos):07d}."
+        add = (stuff_bits(ax25_frame_bits(info)) + AX25_FLAG * 3 + [1] * 240
+               + AX25_FLAG * 3)
+        if 80 + len(wire) + len(add) + 8 > n_bauds:
+            break
+        wire += add
+        infos.append(info)
+    bits = np.ones(n_bauds, np.int64)
+    bits[80: 80 + len(wire)] = wire
+    return 1 ^ (np.cumsum(bits == 0) & 1), infos     # NRZI: 0 flips the level
+
+
+def synth_aprs_bytes(seconds: float, device, seed: int = 0,
+                     chunk: int = 1 << 24) -> tuple[torch.Tensor, list]:
+    """AFSK1200 capture of `seconds` as interleaved uint8 IQ on `device`:
+    Bell-202 tones (mark 1200 Hz, space 2200 Hz) of `aprs_levels`, FM with
+    3.5 kHz deviation onto a 12 kHz offset, both phase integrals carried in
+    fp64 from chunk to chunk, complex noise of 0.02 per component, bytes at
+    x100 + 127.5 like an 8-bit SDR (the physical layer of
+    tests/test_afsk1200.py::afsk_modulate). Returns (bytes, payloads)."""
+    levels, infos = aprs_levels(seconds)
+    lev = torch.as_tensor(levels, device=device)
+    n = int(round(seconds * FS))
+    out = torch.empty(2 * n, dtype=torch.uint8, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    tone0 = torch.zeros((), dtype=torch.float64, device=device)
+    phase0 = torch.zeros((), dtype=torch.float64, device=device)
+    for s in range(0, n, chunk):
+        e = min(n, s + chunk)
+        baud = torch.clamp(torch.arange(s, e, device=device) * BAUD // FS,
+                           max=len(levels) - 1)
+        freq = torch.where(lev[baud] == 1, MARK_HZ, SPACE_HZ).double()
+        tone = tone0 + torch.cumsum(2 * np.pi * freq / FS, 0)
+        tone0 = torch.remainder(tone[-1], 2 * np.pi)
+        dphi = 2 * np.pi * (APRS_OFFSET_HZ + APRS_DEV_HZ * torch.cos(tone)) / FS
+        phase = phase0 + torch.cumsum(dphi, 0)
+        phase0 = torch.remainder(phase[-1], 2 * np.pi)
+        for k, part in enumerate((torch.cos(phase), torch.sin(phase))):
+            noisy = part + APRS_NOISE * torch.randn(
+                e - s, dtype=torch.float64, device=device, generator=gen)
+            out[2 * s + k: 2 * e: 2] = torch.clamp(
+                torch.round(noisy * 100.0 + 127.5), 0, 255).to(torch.uint8)
+    return out, infos
+
+
 def check(cond, what) -> None:
     """Fail the run (raise) unless `cond`; unlike `assert`, kept under -O."""
     if not cond:
@@ -131,15 +229,15 @@ def wrapped(d: torch.Tensor) -> torch.Tensor:
     return torch.atan2(torch.sin(d), torch.cos(d)).abs()
 
 
-def phase3_compare(ddc, fe, dev) -> dict:
+def k1_compare(ddc, fe, dev, raw: torch.Tensor, label: str) -> dict:
     """K1 against the plain version and the fp64 oracle on the second
-    20,000,000-sample block of a synthetic capture, as DdcFmStream hands it
-    over: the previous block's last K-1 samples of bytes, then the block."""
+    20,000,000-sample block of the synthetic capture `raw`, as DdcFmStream
+    hands it over: the previous block's last K-1 samples of bytes, then the
+    block."""
     from directdemod_tpu_torch import constants
     from directdemod_tpu_torch.ops import resample as rs
     J, K = fe.stride, fe.ntaps
     blk = constants.PROC_CHUNKSIZE
-    raw, _ = synth_pass_bytes(80, dev, seed=1)
     s = blk
     off = rs.decim_phase(s, J)
     out_len = rs.decim_count(blk, off, J)
@@ -172,7 +270,7 @@ def phase3_compare(ddc, fe, dev) -> dict:
         if m0 == out_len - 4096:
             c_last_err = abs(complex(c_k.cpu()[0]) - complex(c[-1].cpu()))
             c_last_scale = abs(complex(c[-1].cpu()))
-    print(f"phase 3: out_len {out_len}, kernel vs plain max {err_max:.3e} "
+    print(f"{label}: J {J}, out_len {out_len}, kernel vs plain max {err_max:.3e} "
           f"p99.9 {err_p999:.3e}, kernel vs fp64 oracle max {oracle_err:.3e}, "
           f"c_last err {c_last_err:.3e} of |c| {c_last_scale:.3e}, "
           f"c_last kernel vs plain {abs(complex((c_k - c_p).cpu()[0])):.3e}",
@@ -186,10 +284,9 @@ def phase3_compare(ddc, fe, dev) -> dict:
     ms_k = cuda_ms(lambda: ddc.ddc_fm_u8(seg, taps_rev, rot, c_prev, J, out_len), 20)
     ms_p = cuda_ms(lambda: ddc.ddc_fm_u8_plain(seg, taps_rev, rot, c_prev, J,
                                                out_len), 5)
-    print(f"phase 3: K1 {ms_k:.4f} ms, plain {ms_p:.4f} ms per "
+    print(f"{label}: K1 at J {J} {ms_k:.4f} ms, plain {ms_p:.4f} ms per "
           f"{blk}-sample block ({blk / ms_k / 1e6:.2f} Gsamp/s kernel, "
           f"{blk / ms_p / 1e6:.2f} Gsamp/s plain) on {card_line()}", flush=True)
-    del raw
     return {"max_abs_err": err_max, "ms": ms_k, "plain_ms": ms_p}
 
 
@@ -283,32 +380,154 @@ def write_iq_wav(path: str, raw: np.ndarray) -> None:
         f.write(raw.tobytes())
 
 
-def phase5_cli(dev) -> None:
-    """The CLI on a 30-second IQ.wav synthesized on the card."""
-    raw, _ = synth_pass_bytes(60, dev, seed=2)
+def run_cli(raw: torch.Tensor, name: str, args: list):
+    """Write `raw` as the IQ.wav `name` into a temporary directory and run
+    the port's CLI there on it with `args` and `-r rep.json`. Fails unless
+    it exits 0; returns (stdout, the report's first channel, the files the
+    run left, wall seconds)."""
     root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as tmp:
-        name = "SDRSharp_20170830_073907Z_137590000Hz_IQ.wav"
         write_iq_wav(os.path.join(tmp, name), raw.cpu().numpy())
-        del raw
         env = dict(os.environ, PYTHONPATH=root)
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [sys.executable, "-m", "directdemod_tpu_torch", "-c", "137590000",
-             "-f", "137620000", "-d", "noaa", "-sync", "-r", "rep.json", name],
+            [sys.executable, "-m", "directdemod_tpu_torch", *args,
+             "-r", "rep.json", name],
             cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
         wall = time.perf_counter() - t0
         sys.stderr.write(proc.stderr[-4000:])
         check(proc.returncode == 0, f"CLI exit code {proc.returncode}")
         with open(os.path.join(tmp, "rep.json")) as f:
-            rep = json.load(f)
-        ch = rep["channels"][0]
-        stem = name.split(".")[0]
-        for f in (stem + "_f1.png", stem + "_f1.csv"):
-            check(os.path.exists(os.path.join(tmp, f)), f"{f} written")
-        check(ch["usefulness"] == 1 and ch["device"].startswith("cuda"), f"report {ch}")
-        print(f"phase 5: CLI rc 0 in {wall:.1f} s, decodeSeconds "
-              f"{ch['decodeSeconds']}, files {ch['filesCreated']}", flush=True)
+            ch = json.load(f)["channels"][0]
+        return proc.stdout, ch, set(os.listdir(tmp)), wall
+
+
+def phase5_cli(dev) -> None:
+    """The NOAA CLI on a 30-second IQ.wav synthesized on the card."""
+    raw, _ = synth_pass_bytes(60, dev, seed=2)
+    name = "SDRSharp_20170830_073907Z_137590000Hz_IQ.wav"
+    _, ch, files, wall = run_cli(raw, name, ["-c", "137590000", "-f", "137620000",
+                                             "-d", "noaa", "-sync"])
+    stem = name.split(".")[0]
+    for f in (stem + "_f1.png", stem + "_f1.csv"):
+        check(f in files, f"{f} written")
+    check(ch["usefulness"] == 1 and ch["device"].startswith("cuda"), f"report {ch}")
+    print(f"phase 5: CLI rc 0 in {wall:.1f} s, decodeSeconds "
+          f"{ch['decodeSeconds']}, files {ch['filesCreated']}", flush=True)
+
+
+def k2_compare(peaks, y: torch.Tensor, lookahead: int, delta: float,
+               label: str, plain_reps: int) -> dict:
+    """K2 against its plain version on the walk over y[:n - lookahead]
+    with its forward-window extrema, event for event; then both timed with
+    CUDA events. Returns the kernel-table numbers; max_abs_err is the
+    largest difference over the event fields (inf if the counts differ)."""
+    limit = y.shape[0] - lookahead
+    fmax, fmin = peaks.forward_window_extrema(y, lookahead)
+    args = (y[:limit].contiguous(), fmax[:limit].contiguous(),
+            fmin[:limit].contiguous(), delta)
+    ev_k = peaks.lookahead_walk(*args)
+    ev_p = peaks.lookahead_walk_plain(*args)
+    torch.cuda.synchronize()
+    if ev_k[0].shape != ev_p[0].shape:
+        err, mismatched = float("inf"), abs(ev_k[0].shape[0] - ev_p[0].shape[0])
+    else:
+        diff = torch.stack([(a.double() - b.double()).abs()
+                            for a, b in zip(ev_k, ev_p)])
+        err = float(diff.max()) if diff.numel() else 0.0
+        mismatched = int((diff > 0).any(dim=0).sum())
+    ms_k = cuda_ms(lambda: peaks.lookahead_walk(*args), 5)
+    ms_p = cuda_ms(lambda: peaks.lookahead_walk_plain(*args), plain_reps)
+    print(f"{label}: K2 over {limit} samples, lookahead {lookahead}, delta "
+          f"{delta}: {ev_k[0].shape[0]} events, {mismatched} mismatched vs "
+          f"plain (max field difference {err}); K2 {ms_k:.4f} ms "
+          f"({ms_k * 1e6 / limit:.2f} ns per sample), plain {ms_p:.4f} ms "
+          f"on {card_line()}", flush=True)
+    check(err == 0.0 and ev_k[0].shape[0] > 0,
+          f"K2 events equal the plain version's ({mismatched} mismatched)")
+    return {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p}
+
+
+def stress_edges(n: int, seed: int, device) -> torch.Tensor:
+    """|edge correlation| of a noisy square wave (the stress input of
+    tests/test_peaks_pallas.py), float32 on `device`."""
+    rng = np.random.default_rng(seed)
+    bf = np.sign(np.sin(np.arange(n) / 9.0) + 0.3 * rng.standard_normal(n))
+    y = np.abs(np.convolve(bf, np.concatenate([-np.ones(9), np.ones(9)]),
+                           "same") / 18)
+    return torch.as_tensor(y, dtype=torch.float32, device=device)
+
+
+def phase8_afsk_decode(ddc, peaks, dev) -> tuple[int, int, dict]:
+    """Synthesize a 10-minute APRS capture on the card and decode it from
+    the bytes held there, cold and then warm; every planted frame must come
+    back, in order. Then hold K2 against its plain version on the first
+    2^21 samples of that decode's own edge strength, and time K2 over the
+    whole of it. Returns the warm run's K1 and K2 launch counts and the K2
+    numbers."""
+    from directdemod_tpu_torch.io.sources import DeviceRawSource
+    from directdemod_tpu_torch.models.afsk1200 import Afsk1200Decoder
+    t0 = time.perf_counter()
+    raw, infos = synth_aprs_bytes(600.0, dev, seed=0)
+    torch.cuda.synchronize()
+    n = raw.shape[0] // 2
+    print(f"phase 8: synthesized {n} samples ({raw.shape[0] / 1e9:.2f} GB, "
+          f"{len(infos)} frames) in {time.perf_counter() - t0:.1f} s", flush=True)
+    src = DeviceRawSource(raw, FS)
+    for run in ("cold", "warm"):
+        dec = Afsk1200Decoder(src, APRS_OFFSET_HZ, device=dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ddc.LAUNCHES = peaks.LAUNCHES = 0
+        t0 = time.perf_counter()
+        frames = dec.get_frames()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ddc.LAUNCHES, peaks.LAUNCHES
+        got = [f.info for f in frames]
+        stages = {k: round(v, 4) for k, v in dec.stage_seconds.items()}
+        print(f"phase 8 ({run}): decode of a {n / FS:.1f} s capture in "
+              f"{wall:.3f} s wall ({n / FS / wall:.1f}x real time), stages "
+              f"(CUDA events) {json.dumps(stages)}, peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, useful "
+              f"{dec.useful}, {len(got)}/{len(infos)} frames, K1 launches "
+              f"{launches[0]}, K2 launches {launches[1]} on {card_line()}",
+              flush=True)
+        first_bad = next((i for i, (a, b) in enumerate(zip(got, infos)) if a != b),
+                         None)
+        check(got == infos, f"{len(got)} frames decoded of {len(infos)} planted, "
+                            f"first difference at {first_bad}")
+        check(all(f.source.startswith("N0CALL") and f.destination.startswith("APRS")
+                  and f.control == 0x03 and f.protocol == 0xF0 for f in frames),
+              "AX.25 headers")
+        check(dec.useful == 1, "useful == 1")
+        check(launches[0] > 0 and launches[1] > 0, "the decode launched K1 and K2")
+
+    from directdemod_tpu_torch import constants
+    _, edges = Afsk1200Decoder(src, APRS_OFFSET_HZ, device=dev)._edges()
+    del raw, src
+    lookahead = int(constants.AFSK_DEFAULT_BW // constants.AFSK_BAUDRATE * 0.65)
+    k2 = k2_compare(peaks, edges[: (1 << 21) + lookahead], lookahead, 0.0,
+                    "phase 8 (decode's edges, first 2^21 samples)", 1)
+    limit = edges.shape[0] - lookahead
+    fmax, fmin = peaks.forward_window_extrema(edges, lookahead)
+    args = (edges[:limit], fmax[:limit].contiguous(), fmin[:limit].contiguous(), 0.0)
+    k2["full_ms"] = cuda_ms(lambda: peaks.lookahead_walk(*args), 3)
+    print(f"phase 8: K2 over the decode's whole edge strength ({limit} "
+          f"samples) {k2['full_ms']:.4f} ms ({k2['full_ms'] * 1e6 / limit:.2f} "
+          f"ns per sample) on {card_line()}", flush=True)
+    return launches[0], launches[1], k2
+
+
+def phase9_afsk_cli(dev) -> None:
+    """The AFSK1200 CLI on a 30-second APRS IQ.wav synthesized on the card."""
+    raw, infos = synth_aprs_bytes(30.0, dev, seed=2)
+    out, ch, _, wall = run_cli(raw, "aprs_145825000Hz_IQ.wav",
+                               ["-c", "145813000", "-f", "145825000",
+                                "-d", "afsk1200"])
+    check(infos[-1] in out, f"payload {infos[-1]!r} printed")
+    check(ch["usefulness"] == 1 and ch["device"].startswith("cuda"), f"report {ch}")
+    print(f"phase 9: AFSK CLI rc 0 in {wall:.1f} s, decodeSeconds "
+          f"{ch['decodeSeconds']}, printed {out.strip()!r}", flush=True)
 
 
 def main() -> int:
@@ -321,22 +540,46 @@ def main() -> int:
           f"CUDA {torch.version.cuda}", flush=True)
 
     from directdemod_tpu_torch.models.frontend import DdcFm
-    from directdemod_tpu_torch.ops import ddc, design
+    from directdemod_tpu_torch.ops import _build, ddc, design, peaks
     t0 = time.perf_counter()
+    _build.build_all(["ddc_fm_u8", "lookahead_walk"])
     ddc.build()
-    print(f"phase 2: K1 built and loaded in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    peaks.build()
+    print(f"phase 2: K1 and K2 built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     fe = DdcFm(FS, OFFSET_HZ, design.blackmanharris(151), 60_000)
-    k1 = phase3_compare(ddc, fe, dev)
-    launches = phase4_decode(ddc, fe, dev)
+    raw, _ = synth_pass_bytes(80, dev, seed=1)
+    k1 = k1_compare(ddc, fe, dev, raw, "phase 3")
+    del raw
+    noaa_k1 = phase4_decode(ddc, fe, dev)
     phase5_cli(dev)
 
-    print(json.dumps({"kernels": [{
-        "name": "ddc_fm_u8", "route": "cuda",
-        "source": "directdemod_tpu_torch/csrc/ddc_fm_u8.cu",
-        "replaces": "directdemod_tpu/ops/pallas_ddc.py:148",
-        "launches": launches, **k1}]}))
+    fe92 = DdcFm(FS, APRS_OFFSET_HZ, design.blackmanharris(151), 22_050)
+    raw, _ = synth_aprs_bytes(41.0, dev, seed=1)
+    k1_92 = k1_compare(ddc, fe92, dev, raw, "phase 6")
+    del raw
+    stress = [k2_compare(peaks, stress_edges(200_000, seed, dev), 11, delta,
+                         "phase 7", 3) for seed, delta in ((0, 0.0), (1, 0.1))]
+    afsk_k1, afsk_k2, k2 = phase8_afsk_decode(ddc, peaks, dev)
+    phase9_afsk_cli(dev)
+
+    print(json.dumps({"kernels": [
+        {"name": "ddc_fm_u8", "route": "cuda",
+         "source": "directdemod_tpu_torch/csrc/ddc_fm_u8.cu",
+         "replaces": "directdemod_tpu/ops/pallas_ddc.py:148",
+         "launches": noaa_k1 + afsk_k1,
+         "launches_by_path": {"noaa": noaa_k1, "afsk1200": afsk_k1},
+         **k1, "max_abs_err": max(k1["max_abs_err"], k1_92["max_abs_err"]),
+         "ms_j92": k1_92["ms"], "plain_ms_j92": k1_92["plain_ms"]},
+        {"name": "lookahead_walk", "route": "cuda",
+         "source": "directdemod_tpu_torch/csrc/lookahead_walk.cu",
+         "replaces": "directdemod_tpu/ops/peaks.py:205",
+         "launches": afsk_k2, "launches_by_path": {"afsk1200": afsk_k2},
+         **k2, "max_abs_err": max([k2["max_abs_err"]]
+                                  + [s["max_abs_err"] for s in stress]),
+         "stress_ms": [s["ms"] for s in stress],
+         "stress_plain_ms": [s["plain_ms"] for s in stress]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

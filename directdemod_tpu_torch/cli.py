@@ -1,6 +1,7 @@
 """Command-line interface of the port.
 
-Port of `directdemod_tpu/cli.py:23-302` for the NOAA APT decoder: the same
+Port of `directdemod_tpu/cli.py:23-302` for the NOAA APT and AFSK1200
+decoders: the same
 getopt grammar and its quirks (`-sync` parses as `-s ync`, `-noimage` as
 `-n oimage`, `-ce` as `-c e`, the centre frequency then coming from the file
 name), the same per-channel fence and the same JSON report (`-r`), with
@@ -41,7 +42,7 @@ Common options:
 Channels:
 \t-f <in Hz> : For every channel add a -f flag with respective frequency
 \tOptions for each channel: (if set, must follow -f of the respective channel)
-\t\t-d <str> : decoder for this channel (noaa)
+\t\t-d <str> : decoder for this channel (noaa, afsk1200)
 \t\t-b <in Hz> : channel bandwidth (in order)
 \t\t-o <str> : output file names (in order)
 \t\t-s <in sample#> : starts of signals (in order)
@@ -49,6 +50,7 @@ Channels:
 
 Decoder flags:
 \t-d noaa : APT decoder (-sync writes sync csv, -noimage skips the image)
+\t-d afsk1200 : APRS decoder (prints the last decoded payload)
 \t--resident : copy the capture once into device memory and decode from
 \t             there (falls back to the blocked feed when it does not fit)
 """)
@@ -57,23 +59,6 @@ Decoder flags:
 def default_device() -> torch.device:
     return torch.device("cuda", torch.cuda.current_device()) \
         if torch.cuda.is_available() else torch.device("cpu")
-
-
-def _make_resident(sigsrc, device: torch.device):
-    """The (already windowed) file source's bytes as a DeviceRawSource on
-    `device`, or None (with a log line) when they should not go there: on a
-    card the bytes may take at most half of its free memory, the rest being
-    the decode's working set."""
-    n = int(sigsrc.length)
-    if device.type == "cuda":
-        free, _ = torch.cuda.mem_get_info(device)
-        if 2 * n > free // 2:
-            logging.warning("--resident: capture is %.2f GB of raw bytes, "
-                            "over half of the %.2f GB free on %s; using the "
-                            "blocked feed", 2 * n / 2**30, free / 2**30, device)
-            return None
-    return sources.DeviceRawSource.from_host_bytes(
-        sigsrc.read_raw(0, n), sigsrc.sampFreq, device)
 
 
 def main(argv=None) -> int:
@@ -123,7 +108,7 @@ def main(argv=None) -> int:
     if max(len(starts), len(ends), len(outs), len(bandwidths)) > len(freqs):
         usage("number of starts/ends/outfilenames cannot be greater than frequencies given")
         return 1
-    other = sorted(set(decoders) - {"noaa"})
+    other = sorted(set(decoders) - {"noaa", "afsk1200"})
     if other:
         usage(f"decoder {', '.join(other)}: not yet ported")
         return 1
@@ -175,7 +160,7 @@ def main(argv=None) -> int:
             src_i = sigsrc
             if resident:
                 t_up = perf_counter()
-                wrapped = _make_resident(sigsrc, device)
+                wrapped = sources.resident_copy(sigsrc, device)
                 if wrapped is not None:
                     src_i = wrapped
                     entry["residentUploadSeconds"] = round(
@@ -184,40 +169,49 @@ def main(argv=None) -> int:
             entry["resident"] = src_i is not sigsrc
             entry["device"] = str(device)
             stem = file_name.split(".")[0]
-
             entry["filesCreated"] = []
-            img_file = f"{stem}_f{i + 1}.png"
-            color_file = f"{stem}_f{i + 1}_color.png"
-            csv_file = f"{stem}_f{i + 1}.csv"
-            if outs[i] is not None:
-                img_file, csv_file = outs[i] + ".png", outs[i] + ".csv"
-                color_file = outs[i] + "_color.png"
 
-            from .models.noaa import NoaaDecoder
-            dec = NoaaDecoder(src_i, freq_offset, bandwidths[i], device=device)
-            if calc_image and dec.useful == 1:
-                sinks.write_image(img_file, dec.get_image())
-                entry["filesCreated"].append(img_file)
-                ida, idb = dec.channel_id
-                if ida is not None and idb is not None:
-                    logging.info("NOAA channel A id: %d, channel B id: %d", ida, idb)
-                if ida == 2 and idb == 4:
-                    sinks.write_image(color_file, dec.get_color())
-                    entry["filesCreated"].append(color_file)
-                else:
-                    logging.info("image ineligible for false color")
-            if calc_sync and dec.useful == 1:
-                syncs = dec.get_accurate_sync(use_norm_correlate=True)
-                sinks.write_csv(csv_file, syncs,
-                                titles=["syncA", "diffSyncA", "qualityA",
-                                        "TimeSyncA", "syncB", "diffSyncB",
-                                        "qualityB", "TimeSyncB"])
-                entry["filesCreated"].append(csv_file)
-            if dec.useful == 0:
-                logging.info("No NOAA data was found at this frequency")
-            entry["usefulness"] = dec.useful
-            entry["syncDetect"] = calc_sync
-            entry["image"] = calc_image
+            if decoders[i] == "noaa":
+                img_file = f"{stem}_f{i + 1}.png"
+                color_file = f"{stem}_f{i + 1}_color.png"
+                csv_file = f"{stem}_f{i + 1}.csv"
+                if outs[i] is not None:
+                    img_file, csv_file = outs[i] + ".png", outs[i] + ".csv"
+                    color_file = outs[i] + "_color.png"
+
+                from .models.noaa import NoaaDecoder
+                dec = NoaaDecoder(src_i, freq_offset, bandwidths[i], device=device)
+                if calc_image and dec.useful == 1:
+                    sinks.write_image(img_file, dec.get_image())
+                    entry["filesCreated"].append(img_file)
+                    ida, idb = dec.channel_id
+                    if ida is not None and idb is not None:
+                        logging.info("NOAA channel A id: %d, channel B id: %d", ida, idb)
+                    if ida == 2 and idb == 4:
+                        sinks.write_image(color_file, dec.get_color())
+                        entry["filesCreated"].append(color_file)
+                    else:
+                        logging.info("image ineligible for false color")
+                if calc_sync and dec.useful == 1:
+                    syncs = dec.get_accurate_sync(use_norm_correlate=True)
+                    sinks.write_csv(csv_file, syncs,
+                                    titles=["syncA", "diffSyncA", "qualityA",
+                                            "TimeSyncA", "syncB", "diffSyncB",
+                                            "qualityB", "TimeSyncB"])
+                    entry["filesCreated"].append(csv_file)
+                if dec.useful == 0:
+                    logging.info("No NOAA data was found at this frequency")
+                entry["usefulness"] = dec.useful
+                entry["syncDetect"] = calc_sync
+                entry["image"] = calc_image
+
+            else:   # afsk1200
+                from .models.afsk1200 import Afsk1200Decoder
+                dec = Afsk1200Decoder(src_i, freq_offset, bandwidths[i],
+                                      device=device)
+                print(dec.get_msg())
+                entry["usefulness"] = dec.useful
+
             entry["decodeSeconds"] = round(perf_counter() - t_dec, 3)
             report["channels"].append(entry)
         except Exception as e:  # per-channel fence (ref main.py:347-349)

@@ -1,4 +1,4 @@
-"""Tunables and protocol constants of the NOAA APT slice.
+"""Tunables and protocol constants of the NOAA APT and AFSK1200 slices.
 
 Copy of the matching entries of `directdemod_tpu/constants.py` (the JAX
 package cannot be imported without importing jax). Values must stay
@@ -33,3 +33,9 @@ NOAA_MINPEAKDIST = 0.45         # minimum sync spacing in seconds
 NOAA_COLORCORRECT_FIFOLEN = 10_000
 NOAA_DETECTMAXCHANGE = 5        # max jitter (samples) for the usefulness test
 NOAA_DETECTCONSSYNCSNUM = 10    # consecutive syncs required for usefulness
+
+# ---------------------------------------------------------------- AFSK1200 / APRS
+AFSK_BAUDRATE = 1200
+AFSK_MARK_HZ = 1200
+AFSK_SPACE_HZ = 2200
+AFSK_DEFAULT_BW = 22_050

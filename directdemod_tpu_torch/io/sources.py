@@ -10,12 +10,15 @@ decoders then slice it there instead of copying blocks over.
 """
 from __future__ import annotations
 
+import logging
 import struct
 
 import numpy as np
 import torch
 
 from .. import constants
+
+log = logging.getLogger(__name__)
 
 
 def _wav_data_offset(path: str) -> tuple[int, int, int]:
@@ -160,6 +163,24 @@ class DeviceRawSource(_Windowed):
 
     def read(self, from_index: int, to_index: int | None = None) -> np.ndarray:
         return _u8_to_c64(self.read_raw(from_index, to_index))
+
+
+def resident_copy(sigsrc, device) -> DeviceRawSource | None:
+    """The (already windowed) source's raw bytes as a DeviceRawSource on
+    `device`, or None (with a log line) when they should not go there: on a
+    card the bytes may take at most half of its free memory, the rest being
+    the decode's working set."""
+    device = torch.device(device)
+    n = int(sigsrc.length)
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        if 2 * n > free // 2:
+            log.warning("capture is %.2f GB of raw bytes, over half of the "
+                        "%.2f GB free on %s; not holding it there",
+                        2 * n / 2**30, free / 2**30, device)
+            return None
+    return DeviceRawSource.from_host_bytes(sigsrc.read_raw(0, n),
+                                           sigsrc.sampFreq, device)
 
 
 def open_source(filename: str, given_samp_freq: int | None = None):

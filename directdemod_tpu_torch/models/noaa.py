@@ -12,9 +12,7 @@ slots were workarounds for its device link and are not ported.
 """
 from __future__ import annotations
 
-import contextlib
 import logging
-import time
 
 import numpy as np
 import torch
@@ -26,6 +24,7 @@ from ..ops import correlate as corr_ops
 from ..ops import design, fir, fm as fm_ops, iir, peaks, resample as rs
 from ..ops import unpack
 from .frontend import DdcFm, DdcFmStream
+from .stages import TimedDecoder
 
 log = logging.getLogger(__name__)
 
@@ -33,25 +32,20 @@ AM_BLOCK = 60000 * 4        # blockwise-Hilbert chunk (ref decode_noaa.py:647)
 WINDOW_GROUP = 64           # accurate-sync windows per device batch
 
 
-class NoaaDecoder:
+class NoaaDecoder(TimedDecoder):
     """Decode NOAA APT from an IQ source on `device`.
 
     The surface of the reference: `useful`, `get_audio()`, `get_image()`,
     `image_a`/`image_b`, `get_color()`, `channel_id`, `get_crude_sync()`,
-    `get_accurate_sync()`, each computed once and cached. `device` defaults
-    to the source's own device for a `DeviceRawSource`, else the CPU.
-    `stage_seconds` accumulates each stage's time (CUDA events on a card)."""
+    `get_accurate_sync()`, each computed once and cached. `device` and
+    `stage_seconds` as `TimedDecoder` gives them."""
 
     def __init__(self, sigsrc, offset: float, bw: int | None = None,
                  device=None):
         self.src = sigsrc
         self.offset = float(offset)
         self.bw = int(bw) if bw else K.NOAA_FMBW
-        dev = torch.device(device if device is not None
-                           else getattr(sigsrc, "device", "cpu"))
-        if dev.type == "cuda" and dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-        self.device = dev
+        self._init_device(sigsrc, device)
         self._audio = None           # (tensor, rate) at the crude-sync rate
         self._audio_strict = None    # (ndarray, rate) at NOAA_AUDSAMPRATE
         self._sync_a = None
@@ -62,34 +56,6 @@ class NoaaDecoder:
         self._color = None
         self._ch_id = (None, None)
         self._accurate = None
-        self._timers: list = []
-
-    # ------------------------------------------------------------- timing
-    @contextlib.contextmanager
-    def _stage(self, name: str):
-        if self.device.type == "cuda":
-            t0, t1 = torch.cuda.Event(enable_timing=True), \
-                torch.cuda.Event(enable_timing=True)
-            t0.record()
-            yield
-            t1.record()
-            self._timers.append((name, t0, t1))
-        else:
-            t0 = time.perf_counter()
-            yield
-            self._timers.append((name, t0, time.perf_counter()))
-
-    @property
-    def stage_seconds(self) -> dict:
-        out: dict = {}
-        for name, a, b in self._timers:
-            if isinstance(a, float):
-                dt = b - a
-            else:
-                b.synchronize()
-                dt = a.elapsed_time(b) / 1e3
-            out[name] = out.get(name, 0.0) + dt
-        return out
 
     # ------------------------------------------------------------- front end
     def _frontend(self) -> DdcFm:

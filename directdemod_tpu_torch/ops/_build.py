@@ -15,6 +15,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -66,6 +67,14 @@ def build(name: str) -> str:
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
+
+
+def build_all(names) -> list[str]:
+    """`build` each of `names` with all compilers running at once; returns
+    the library paths (raises the first build failure)."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return list(pool.map(build, names))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,10 +1,11 @@
 """FIR filtering as strided convolution.
 
-Port of `directdemod_tpu/ops/fir.py:117-197`: the stateful chunked FIR
+Port of `directdemod_tpu/ops/fir.py:117-221`: the stateful chunked FIR
 (overlap-save: the carried state is the last `ntaps-1` input samples), the
-fused filter + stride-decimation that computes only the kept outputs, and
-scipy's `filtfilt(b, [1], x)` zero-phase mode. All of them are
-`F.conv1d` calls over the last axis; leading axes are batch axes.
+fused filter + stride-decimation that computes only the kept outputs,
+scipy's `filtfilt(b, [1], x)` zero-phase mode, and NumPy's / SciPy's
+'same'-mode convolution and correlation. All of them are `F.conv1d` calls
+over the last axis; leading axes are batch axes.
 """
 from __future__ import annotations
 
@@ -88,3 +89,22 @@ def fir_zero_phase(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
     yr = yf.flip(-1)
     yb, _ = fir_apply(yr, t, yr[..., :1].expand(yr.shape[:-1] + (k - 1,)))
     return yb.flip(-1)[..., padlen:padlen + n]
+
+
+def convolve_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """np.convolve(x, w, mode='same') over the last axis, as a direct
+    convolution: 'same' keeps full-convolution samples
+    [(k-1)//2, (k-1)//2 + n)."""
+    k = w.shape[0]
+    lpad = (k - 1) // 2
+    xp = F.pad(x, (k - 1 - lpad, lpad))
+    return conv_valid(xp, w.flip(0))
+
+
+def correlate_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """scipy.signal.correlate(x, w, 'same') for real taps, as a direct
+    (never FFT) convolution. The AFSK edge detector feeds a peak walk with
+    no threshold: its flat stretches must come out exactly zero, and FFT
+    round-off there would create phantom peaks. Sums of small integers stay
+    exact in fp32 (TF32 is off, see the package docstring)."""
+    return convolve_same(x, w.flip(0))

@@ -1,16 +1,38 @@
-"""Peak detection and grouping for the APT sync search.
+"""Peak detection: the APT sync search and the AFSK lookahead walk.
 
-Port of the sync part of `directdemod_tpu/ops/peaks.py:36-155`: the top-k
-adaptive threshold, the candidates above it, and the min-distance grouping
-that keeps the maximum of each group. The device does the dense work; the
-sequential grouping walk runs on the host over the sparse candidate list.
-The reference's two-stage blocked top-k and its fixed candidate slots were
-workarounds for its device; `torch.topk` and `torch.nonzero` take any size.
+Port of `directdemod_tpu/ops/peaks.py:36-443`.
+
+The APT sync part: the top-k adaptive threshold, the candidates above it,
+and the min-distance grouping that keeps the maximum of each group. The
+device does the dense work; the sequential grouping walk runs on the host
+over the sparse candidate list. The reference's two-stage blocked top-k and
+its fixed candidate slots were workarounds for its device; `torch.topk` and
+`torch.nonzero` take any size.
+
+The lookahead part (`lookahead_peaks`, ref peakdetect.py:141-254): the
+forward-window extrema are two stride-1 max pools; the alternating max/min
+walk over them is K2 (`lookahead_walk`), the CUDA kernel
+`csrc/lookahead_walk.cu` for tensors on a CUDA device and its plain version
+`lookahead_walk_plain` for tensors on the CPU; any other device raises, and
+there is no fallback from the kernel to the plain version. Events are int64
+index tensors sized so that they cannot overflow, so the reference's
+float32 index packing, its event cap and its dense overflow fallback are
+not ported.
 """
 from __future__ import annotations
 
+import ctypes
+import math
+
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from . import _build
+
+# Number of K2 kernel launches in this process (the plain version does not
+# count).
+LAUNCHES = 0
 
 
 def top_k_exact(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -88,3 +110,163 @@ def host_find_sync_peaks(cor: np.ndarray, samp_rate: float, needle_len: int,
         return np.empty(0, dtype=np.int64)
     grouped = group_peaks(idx, cor[idx], min_dist_s * samp_rate)
     return np.sort(grouped - needle_len // 2)
+
+
+# --------------------------------------------------------------------- lookahead peaks
+
+def forward_window_extrema(y: torch.Tensor, w: int
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """fwd_max[i] = max(y[i:i+w]), fwd_min[i] = min(y[i:i+w]) for
+    i <= len(y) - w (exact: a max pool picks one of its inputs)."""
+    y3 = y.reshape(1, 1, -1)
+    return (F.max_pool1d(y3, w, stride=1).reshape(-1),
+            -F.max_pool1d(-y3, w, stride=1).reshape(-1))
+
+
+def _check_walk(y: torch.Tensor, fmax: torch.Tensor, fmin: torch.Tensor,
+                delta: float) -> int:
+    """Validate K2's argument contract; returns the walk length."""
+    for name, t in (("y", y), ("fmax", fmax), ("fmin", fmin)):
+        if t.dtype != torch.float32 or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D float32 tensor")
+        if t.device != y.device:
+            raise ValueError(f"{name} is on {t.device}, y on {y.device}")
+        if t.shape[0] != y.shape[0]:
+            raise ValueError(f"{name} holds {t.shape[0]} samples, y {y.shape[0]}")
+    if not float(delta) >= 0.0:
+        raise ValueError(f"delta must be >= 0, got {delta}")
+    return int(y.shape[0])
+
+
+def lookahead_walk_plain(y: torch.Tensor, fmax: torch.Tensor,
+                         fmin: torch.Tensor, delta: float
+                         ) -> tuple[torch.Tensor, ...]:
+    """K2's contract as a plain Python loop, line for line the body of
+    `directdemod_tpu/ops/peaks.py::_lookahead_scan`. The thresholds
+    mx - delta and mn + delta are float32 as in the kernel: a finite mx is
+    always y[mxpos], so they are read from y -/+ delta computed once in
+    float32. Returns (index, position, value, is_max) tensors on y's
+    device, one entry per fire, in index order."""
+    limit = _check_walk(y, fmax, fmin, delta)
+    d = torch.tensor(float(delta), dtype=torch.float32, device=y.device)
+    ys, fxs, fns = y.tolist(), fmax.tolist(), fmin.tolist()
+    ymd, ypd = (y - d).tolist(), (y + d).tolist()
+    isfinite = math.isfinite
+    inf = math.inf
+    mx, mn, mxpos, mnpos = -inf, inf, 0, 0
+    mx_thr = mn_thr = math.nan
+    events = []
+    for i in range(limit):
+        yi = ys[i]
+        if yi > mx:
+            mx, mxpos, mx_thr = yi, i, ymd[i]
+        if yi < mn:
+            mn, mnpos, mn_thr = yi, i, ypd[i]
+        if yi < mx_thr and isfinite(mx) and fxs[i] < mx:
+            events.append((i, mxpos, mx, True))
+            mx = mn = inf
+        elif yi > mn_thr and isfinite(mn) and fns[i] > mn:
+            events.append((i, mnpos, mn, False))
+            mx = mn = -inf
+    idx, pos, val, is_max = zip(*events) if events else ((),) * 4
+    dev = y.device
+    return (torch.tensor(idx, dtype=torch.int64, device=dev),
+            torch.tensor(pos, dtype=torch.int64, device=dev),
+            torch.tensor(val, dtype=torch.float32, device=dev),
+            torch.tensor(is_max, dtype=torch.bool, device=dev))
+
+
+_lib = None
+
+
+def _kernel_lib():
+    global _lib
+    if _lib is None:
+        lib = _build.load("lookahead_walk")
+        fn = lib.lookahead_walk_launch
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def build() -> None:
+    """Compile (or find) and load the K2 kernel library."""
+    _kernel_lib()
+
+
+def lookahead_walk(y: torch.Tensor, fmax: torch.Tensor, fmin: torch.Tensor,
+                   delta: float) -> tuple[torch.Tensor, ...]:
+    """K2 on the tensors' device: the walk over all of `y` (fmax, fmin its
+    forward-window extrema at the same indices), the CUDA kernel on a CUDA
+    device, the plain version on the CPU. Returns (index int64, position
+    int64, value float32, is_max bool) tensors, one entry per fire."""
+    global LAUNCHES
+    if y.device.type == "cpu":
+        return lookahead_walk_plain(y, fmax, fmin, delta)
+    if y.device.type != "cuda":
+        raise ValueError(f"lookahead_walk runs on cuda or cpu, not {y.device}")
+    limit = _check_walk(y, fmax, fmin, delta)
+    lib = _kernel_lib()
+    cap = limit // 2 + 2          # fires never follow fires at the next index
+    dev = y.device
+    idx = torch.empty(cap, dtype=torch.int64, device=dev)
+    pos = torch.empty(cap, dtype=torch.int64, device=dev)
+    val = torch.empty(cap, dtype=torch.float32, device=dev)
+    is_max = torch.empty(cap, dtype=torch.bool, device=dev)
+    count = torch.empty(1, dtype=torch.int64, device=dev)
+    err = lib.lookahead_walk_launch(
+        y.data_ptr(), fmax.data_ptr(), fmin.data_ptr(), limit, float(delta),
+        idx.data_ptr(), pos.data_ptr(), val.data_ptr(), is_max.data_ptr(),
+        count.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"lookahead_walk kernel launch failed: cudaError_t {err}")
+    LAUNCHES += 1
+    k = int(count.item())
+    return idx[:k], pos[:k], val[:k], is_max[:k]
+
+
+def lookahead_events(y: torch.Tensor, lookahead: int, delta: float = 0.0
+                     ) -> tuple[torch.Tensor, ...]:
+    """The walk of `lookahead_peaks` on y's device: forward-window extrema,
+    then K2 over y[:n - lookahead] (the reference iterates y[:-lookahead]).
+    y is walked in float32, as the TPU kernel walks it. Needs
+    n > lookahead >= 1."""
+    limit = int(y.shape[0]) - lookahead
+    y = y.float().contiguous()
+    fmax, fmin = forward_window_extrema(y, lookahead)
+    return lookahead_walk(y[:limit], fmax[:limit].contiguous(),
+                          fmin[:limit].contiguous(), delta)
+
+
+def unpack_lookahead_events(events, lookahead: int, n: int
+                            ) -> tuple[tuple[np.ndarray, np.ndarray],
+                                       tuple[np.ndarray, np.ndarray]]:
+    """Host split of the walk's events into ((max positions, max values),
+    (min positions, min values)), replaying the reference's end-of-signal
+    break (the events up to the first with index + lookahead >= n) and its
+    pop of the first event (ref peakdetect.py:196-254)."""
+    idx, pos, val, is_max = (t.cpu().numpy() for t in events)
+    stop = np.flatnonzero(idx + lookahead >= n)
+    keep = slice(1, stop[0] + 1 if len(stop) else len(idx))
+    pos, val, is_max = pos[keep], val[keep], is_max[keep]
+    return ((pos[is_max], val[is_max]), (pos[~is_max], val[~is_max]))
+
+
+def lookahead_peaks(y: torch.Tensor, lookahead: int, delta: float = 0.0
+                    ) -> tuple[list, list]:
+    """Alternating max/min peak picking with lookahead confirmation,
+    matching `peakdetect` (ref peakdetect.py:141-254). Returns (max_peaks,
+    min_peaks) as [index, value] lists."""
+    if lookahead < 1:
+        raise ValueError("lookahead must be >= 1")
+    n = int(y.shape[0])
+    if n <= lookahead:
+        return [], []
+    mx, mn = unpack_lookahead_events(lookahead_events(y, lookahead, delta),
+                                     lookahead, n)
+    return ([[int(p), float(v)] for p, v in zip(*mx)],
+            [[int(p), float(v)] for p, v in zip(*mn)])

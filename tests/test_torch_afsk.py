@@ -1,0 +1,352 @@
+"""The port's AFSK1200/APRS slice against the JAX package on the same numpy
+inputs: the lookahead walk (K2's plain version) against the JAX dense scan
+and the JAX Pallas walk in interpret mode, the 'same' convolutions, the CRC
+and bit layer, the baud window means, the FM audio of the front end, and
+the whole decoder.
+
+Stated tolerances:
+- peaks, CRC, the bit layer, the 'same' convolutions on +/-1/0 inputs, the
+  designed constants and decoded frames: equal (the walk compares float32
+  values and takes float32 thresholds on both sides; the edge sums are
+  small integers, exact in float32);
+- window means: float32 sums of 18 values in another order, 1e-6 relative
+  to the scale of bf;
+- FM audio: the JAX suite's bars for fp32 phase outputs, 99.9th percentile
+  of the wrapped difference < 1e-4 and max < 2e-2 (tests/test_pallas.py:86-87).
+"""
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+import chip_smoke
+from directdemod_tpu.io.sources import ArraySource as JArraySource
+from directdemod_tpu.io.sources import IQDat as JIQDat
+from directdemod_tpu.models import afsk1200 as jafsk
+from directdemod_tpu.models.frontend import DdcFm as JDdcFm
+from directdemod_tpu.ops import crc as jcrc
+from directdemod_tpu.ops import design as jdesign
+from directdemod_tpu.ops import fir as jfir
+from directdemod_tpu.ops import iir as jiir
+from directdemod_tpu.ops import peaks as jpeaks
+from directdemod_tpu_torch import constants
+from directdemod_tpu_torch.io.sources import ArraySource, DeviceRawSource
+from directdemod_tpu_torch.models.afsk1200 import Afsk1200Decoder, _window_means
+from directdemod_tpu_torch.ops import crc, ddc, fir, peaks
+from tests.test_afsk1200 import afsk_modulate, make_ax25_frame, stuff_bits
+
+torch.set_num_threads(1)
+
+FS, OFF = 2048000, 12000
+FLAGS = [0, 1, 1, 1, 1, 1, 1, 0]
+
+
+def _stress_y(n, seed):
+    """|edge correlation| of a noisy square wave (tests/test_peaks_pallas.py)."""
+    rng = np.random.default_rng(seed)
+    bf = np.sign(np.sin(np.arange(n) / 9.0) + 0.3 * rng.standard_normal(n))
+    k = np.concatenate([-np.ones(9), np.ones(9)])
+    return np.abs(np.convolve(bf, k, "same") / 18).astype(np.float32)
+
+
+def _wave_y(n, seed, period):
+    """A noisy sine whose extrema lie `period` / 2 apart: the input for long
+    lookaheads (the edge input's zero stretches never confirm a minimum
+    over 500 samples)."""
+    rng = np.random.default_rng(seed)
+    return (np.sin(2 * np.pi * np.arange(n) / period)
+            + 0.05 * rng.standard_normal(n)).astype(np.float32)
+
+
+def _input(kind, n, seed):
+    return _stress_y(n, seed) if kind == "edges" else _wave_y(n, seed, kind)
+
+
+# ----------------------------------------------------------------- K2 plain version
+
+@pytest.mark.parametrize("seed,lookahead,delta,n,kind", [
+    (0, 11, 0.0, 6144, "edges"),
+    (1, 11, 0.1, 6144, "edges"),
+    (2, 1, 0.0, 4000, "edges"),
+    (3, 1, 0.1, 4000, "edges"),
+    (4, 500, 0.0, 12000, 1600),
+    (5, 500, 0.2, 12000, 1600),
+])
+def test_walk_matches_jax_dense(seed, lookahead, delta, n, kind):
+    """Against the JAX package's dense lax.scan walk (the walk K2 replaces
+    off the TPU), exact."""
+    y = _input(kind, n, seed)
+    got = peaks.lookahead_peaks(torch.from_numpy(y), lookahead, delta)
+    dense = jpeaks._lookahead_peaks_dense(jnp.asarray(y), lookahead, delta)
+    assert got == (dense[0], dense[1])
+    assert len(got[0]) >= 5 and len(got[1]) >= 5      # the input fires
+
+
+@pytest.mark.parametrize("seed,lookahead,delta,kind", [
+    (6, 1, 0.0, "edges"), (7, 11, 0.1, "edges"), (8, 500, 0.0, 1000)])
+def test_walk_matches_jax_pallas(seed, lookahead, delta, kind):
+    """Against the Pallas kernel K2 ports, in interpret mode as
+    tests/test_peaks_pallas.py runs it (one 1,024-sample grid step: the
+    interpreter takes milliseconds a sample), exact."""
+    n = 1024 + lookahead
+    y = _input(kind, n, seed)
+    got = peaks.lookahead_peaks(torch.from_numpy(y), lookahead, delta)
+    with pltpu.force_tpu_interpret_mode():
+        flat = np.asarray(jpeaks._lookahead_events_pallas(
+            jnp.asarray(y), lookahead, delta, n - lookahead))
+    want = jpeaks.unpack_lookahead_events(flat, lookahead, n, n - lookahead)
+    assert got == (want[0], want[1])
+    assert len(got[0]) + len(got[1]) >= 1
+
+
+@pytest.mark.parametrize("y,lookahead", [
+    (np.ones(5, np.float32), 5),                        # n == lookahead
+    (np.ones(3, np.float32), 7),                        # n < lookahead
+    (np.arange(200, dtype=np.float32), 4),              # ramp: no fire
+    (np.float32([0, 3, 0, 0, 1, 1, 1, 1, 1, 1, 4, 0, 0, 0, 0, 0]), 3),  # max popped
+    (np.float32([5, 1, 5, 5, 4, 4, 4, 4, 4, 4, 0, 5, 5, 5, 5, 5]), 3),  # min popped
+    (np.float32([0, 3, 0, 0, 0, 0, 0, 0]), 3),          # the only event is popped
+])
+def test_walk_edge_cases_match_jax(y, lookahead):
+    got = peaks.lookahead_peaks(torch.from_numpy(y), lookahead)
+    want = jpeaks.lookahead_peaks(jnp.asarray(y), lookahead)
+    assert got == (want[0], want[1])
+    if len(y) == 16:           # three events, the first of them popped
+        assert len(got[0]) == len(got[1]) == 1
+
+
+def test_walk_event_buffer_bound():
+    """The densest walk (a fire every other sample) stays inside the
+    limit // 2 + 2 events the kernel's buffer holds, and equals JAX."""
+    y = np.tile(np.float32([1, 0, 0, 1]), 1500)
+    limit = len(y) - 1
+    ev = peaks.lookahead_events(torch.from_numpy(y), 1)
+    assert limit // 2 - 2 <= len(ev[0]) <= limit // 2 + 2
+    assert torch.all(ev[0][1:] - ev[0][:-1] >= 2)
+    got = peaks.lookahead_peaks(torch.from_numpy(y), 1)
+    want = jpeaks._lookahead_peaks_dense(jnp.asarray(y), 1, 0.0)
+    assert got == (want[0], want[1])
+
+
+def test_forward_window_extrema_match_jax():
+    y = _stress_y(3000, 7) + np.random.default_rng(7).standard_normal(3000).astype(np.float32)
+    for w in (1, 11, 500):
+        mx, mn = peaks.forward_window_extrema(torch.from_numpy(y), w)
+        jmx, jmn = jpeaks._forward_window_extrema(jnp.asarray(y), w)
+        assert np.array_equal(mx.numpy(), np.asarray(jmx))
+        assert np.array_equal(mn.numpy(), np.asarray(jmn))
+
+
+@pytest.mark.parametrize("bad", ["dtype", "length", "delta", "nan_delta",
+                                 "device", "lookahead"])
+def test_walk_rejects_bad_arguments(bad):
+    y = torch.from_numpy(_stress_y(100, 0))
+    fmax, fmin = y.clone(), y.clone()
+    delta = 0.0
+    if bad == "dtype":
+        y = y.double()
+    elif bad == "length":
+        fmax = fmax[:-1]
+    elif bad == "delta":
+        delta = -0.1
+    elif bad == "nan_delta":
+        delta = float("nan")
+    elif bad == "device":
+        y, fmax, fmin = (t.to("meta") for t in (y, fmax, fmin))
+    if bad == "lookahead":
+        with pytest.raises(ValueError):
+            peaks.lookahead_peaks(y, 0)
+        return
+    with pytest.raises(ValueError):
+        peaks.lookahead_walk(y, fmax, fmin, delta)
+
+
+# ----------------------------------------------------------------- convolutions, CRC, bits
+
+@pytest.mark.parametrize("k", [18, 17, 5, 1])
+def test_same_mode_convolutions_match_jax(k):
+    rng = np.random.default_rng(k)
+    x = rng.integers(-1, 2, 3000).astype(np.float32)
+    w = rng.integers(-1, 2, k).astype(np.float32)
+    for ours, theirs in ((fir.correlate_same, jfir.correlate_same),
+                         (fir.convolve_same, jfir.convolve_same)):
+        got = ours(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+        want = np.asarray(theirs(jnp.asarray(x), jnp.asarray(w)))
+        assert np.array_equal(got, want)
+
+
+def test_crc_equals_jax():
+    rng = np.random.default_rng(3)
+    for n in (0, 7, 16, 37, 120, 512, 2049):
+        bits = "".join(str(b) for b in rng.integers(0, 2, n))
+        assert crc.fcs_crc16_bits(bits) == jcrc.fcs_crc16_bits(bits)
+        assert crc.fcs_crc16_bits([int(b) for b in bits]) == crc.fcs_crc16_bits(bits)
+
+
+def test_bit_layer_equals_jax():
+    J = jafsk.Afsk1200Decoder
+    rng = np.random.default_rng(8)
+    for n in (0, 1, 9, 300, 5000):
+        bits = rng.integers(0, 2, n)
+        bits[n // 3: n // 3 + 7] = 1                    # a run that stuffs
+        assert np.array_equal(Afsk1200Decoder.find_bit_stuffing(bits),
+                              J.find_bit_stuffing(bits))
+        assert np.array_equal(Afsk1200Decoder.find_flags(bits), J.find_flags(bits))
+        marks = J.find_bit_stuffing(bits)
+        assert Afsk1200Decoder.reduce_stuffed_bit(bits, marks) == \
+            J.reduce_stuffed_bit(bits, marks)
+        if n:
+            nrzi = np.sign(rng.standard_normal(n))
+            assert np.array_equal(Afsk1200Decoder.decode_nrzi(nrzi), J.decode_nrzi(nrzi))
+    msg = make_ax25_frame(info="port parity")[:-16]
+    assert Afsk1200Decoder.parse_ax25(msg).__dict__ == J.parse_ax25(msg).__dict__
+
+
+def test_window_means_match_jax():
+    rng = np.random.default_rng(12)
+    bf = rng.standard_normal(40_000).astype(np.float32)
+    spb = constants.AFSK_DEFAULT_BW // constants.AFSK_BAUDRATE
+    starts = np.concatenate([np.sort(rng.integers(0, 39_000, 500)),
+                             [40_000 - 5, 40_000, 40_003]])   # partial, empty
+    got = _window_means(torch.from_numpy(bf), torch.from_numpy(starts), spb).numpy()
+    hl = np.stack([(starts // 4096).astype(np.float32),
+                   (starts % 4096).astype(np.float32)])
+    want = np.asarray(jafsk._window_means(jnp.asarray(bf), jnp.asarray(hl), spb))
+    assert np.max(np.abs(got - want)) < 1e-6 * np.max(np.abs(bf))
+    assert got[-2] == got[-1] == 0.0
+
+
+# ----------------------------------------------------------------- front end and decoder
+
+def _wire(infos):
+    wire = FLAGS * 3
+    for info in infos:
+        wire += stuff_bits(make_ax25_frame(info=info)) + FLAGS * 3
+    return wire
+
+
+def _capture(infos, seed=1):
+    iq = afsk_modulate(_wire(infos), FS, offset_hz=OFF)
+    rng = np.random.default_rng(seed)
+    return iq + 0.02 * (rng.standard_normal(len(iq))
+                        + 1j * rng.standard_normal(len(iq))).astype(np.complex64)
+
+
+def _quantize(iq):
+    raw = np.empty(2 * len(iq), np.uint8)
+    raw[0::2] = np.clip(np.round(iq.real * 100 + 127.5), 0, 255)
+    raw[1::2] = np.clip(np.round(iq.imag * 100 + 127.5), 0, 255)
+    return raw
+
+
+@pytest.fixture(scope="module")
+def aprs_capture():
+    """The capture of tests/test_afsk1200.py, plus its 8-bit quantization."""
+    iq = _capture(["hello tpu world!"])
+    return iq, _quantize(iq)
+
+
+def _key(frames):
+    return [(f.info, f.source, f.destination, f.path, f.control, f.protocol,
+             f.start_bit) for f in frames]
+
+
+def test_designed_constants_equal_jax():
+    dec = Afsk1200Decoder(ArraySource(np.zeros(10, np.complex64), FS), OFF)
+    fe = dec._frontend()
+    jfe = JDdcFm(FS, OFF, jdesign.blackmanharris(151), constants.AFSK_DEFAULT_BW,
+                 fm=False)
+    assert fe.stride == jfe.stride == 92 and fe.out_rate == jfe.out_rate
+    assert np.array_equal(fe.taps_mod, jfe.taps_mod) and fe.rot == complex(jfe.rot)
+    jbp = jiir.IirFilter.design_butter(fe.out_rate, 700, 2700, order=6,
+                                       kind="bandpass")
+    bp = dec._bandpass(fe.out_rate)
+    assert np.array_equal(bp.sos, np.asarray(jbp.sos))
+    assert np.array_equal(bp.initial_state_step(torch.float64).numpy(),
+                          np.asarray(jbp.initial_state_step(jnp.float64)))
+
+
+def test_fm_audio_matches_jax_resident_complex(aprs_capture, monkeypatch):
+    """The port's FM front end (block 0 shortened so K1's plain version
+    runs over the rest) against the JAX complex front end discriminated over
+    the whole stream, on the resident and on the blocked path."""
+    _, raw = aprs_capture
+    n = len(raw) // 2
+    monkeypatch.setattr(constants, "PROC_CHUNKSIZE", 200_000)
+    jfe = JDdcFm(FS, OFF, jdesign.blackmanharris(151), constants.AFSK_DEFAULT_BW,
+                 fm=False)
+    c = np.asarray(jfe.resident_complex(jnp.asarray(raw), n)).astype(np.complex64)
+    ref = np.angle(c[1:] * np.conj(c[:-1]) * np.complex64(jfe.rot))
+    src = DeviceRawSource(torch.from_numpy(raw), FS)
+    resident = Afsk1200Decoder(src, OFF)
+    blocked = Afsk1200Decoder(src, OFF)
+    blocked._device_inputs = lambda: (None, n)
+    for dec in (resident, blocked):
+        got, rate = dec._baseband_audio()
+        assert rate == jfe.out_rate
+        got = got.numpy()
+        assert got.shape == ref.shape
+        d = np.abs(np.angle(np.exp(1j * (got.astype(np.float64) - ref))))
+        assert np.percentile(d, 99.9) < 1e-4 and d.max() < 2e-2
+
+
+def test_decoder_matches_jax_on_complex_source(aprs_capture):
+    iq, _ = aprs_capture
+    dec = Afsk1200Decoder(ArraySource(iq, FS), OFF)
+    jdec = jafsk.Afsk1200Decoder(JArraySource(iq, FS), OFF)
+    frames = dec.get_frames()
+    assert _key(frames) == _key(jdec.get_frames())
+    assert frames[-1].info == "hello tpu world!" and dec.useful == jdec.useful == 1
+    assert dec.get_msg() == jdec.get_msg() == "hello tpu world!"
+    assert set(dec.stage_seconds) == {"fm_frontend", "bit_sync", "framing"}
+
+
+def test_decoder_matches_jax_on_raw_bytes(aprs_capture, tmp_path, monkeypatch):
+    """The quantized capture held in a CPU DeviceRawSource, block 0
+    shortened so the resident front end runs K1's plain version, against the
+    JAX decoder on the same bytes from a file."""
+    _, raw = aprs_capture
+    p = tmp_path / "aprs.dat"
+    raw.tofile(p)
+    monkeypatch.setattr(constants, "PROC_CHUNKSIZE", 200_000)
+    before = ddc.LAUNCHES, peaks.LAUNCHES
+    dec = Afsk1200Decoder(DeviceRawSource(torch.from_numpy(raw), FS), OFF)
+    jdec = jafsk.Afsk1200Decoder(JIQDat(str(p), FS), OFF)
+    assert _key(dec.get_frames()) == _key(jdec.get_frames())
+    assert dec.useful == jdec.useful == 1 and dec.device.type == "cpu"
+    assert (ddc.LAUNCHES, peaks.LAUNCHES) == before   # the CPU launches nothing
+
+
+def test_resident_path_matches_blocked_path(monkeypatch):
+    """Three frames: the bytes held in a DeviceRawSource through the
+    resident front end equal the blocked stream of the same bytes, frame
+    for frame (mirrors tests/test_afsk1200.py::test_fused_path_matches_legacy)."""
+    infos = ["first frame", "second frame!", "third and last frame"]
+    raw = _quantize(_capture(infos, seed=4))
+    monkeypatch.setattr(constants, "PROC_CHUNKSIZE", 300_000)
+    src = DeviceRawSource(torch.from_numpy(raw), FS)
+    d1 = Afsk1200Decoder(src, OFF)
+    d2 = Afsk1200Decoder(src, OFF)
+    d2._device_inputs = lambda: (None, int(src.length))
+    f1, f2 = d1.get_frames(), d2.get_frames()
+    assert [f.info for f in f1] == infos
+    assert _key(f1) == _key(f2) and d1.useful == d2.useful == 1
+
+
+def test_noise_only_capture_is_not_useful():
+    rng = np.random.default_rng(9)
+    n = 400_000
+    iq = (0.3 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))).astype(np.complex64)
+    dec = Afsk1200Decoder(ArraySource(iq, FS), OFF)
+    assert dec.get_frames() == [] and dec.useful == 0 and dec.get_msg() is None
+
+
+def test_chip_smoke_synthesizer_decodes():
+    """chip_smoke.py's torch APRS synthesizer (what the card decodes at
+    full size), at 3 s on the CPU: every planted frame comes back."""
+    raw, infos = chip_smoke.synth_aprs_bytes(3.0, "cpu", seed=3)
+    assert raw.dtype == torch.uint8 and raw.shape[0] == 2 * 3 * FS
+    assert len(infos) >= 4 and all(len(i) == 30 for i in infos)
+    dec = Afsk1200Decoder(DeviceRawSource(raw, FS), chip_smoke.APRS_OFFSET_HZ)
+    assert [f.info for f in dec.get_frames()] == infos

@@ -1,8 +1,8 @@
-"""The port's command line (`directdemod_tpu_torch.cli`) for `-d noaa`: the
-reference's flag grammar and quirks, the JSON report, and the products held
-against the JAX package's CLI on the same IQ.wav (image within one uint8
-level on under 1 % of pixels, accurate syncs within +/-1 sample; see
-tests/test_torch_noaa.py for why)."""
+"""The port's command line (`directdemod_tpu_torch.cli`) for `-d noaa` and
+`-d afsk1200`: the reference's flag grammar and quirks, the JSON report,
+and the products held against the JAX package's CLI on the same IQ.wav
+(image within one uint8 level on under 1 % of pixels, accurate syncs within
++/-1 sample, see tests/test_torch_noaa.py for why; the same APRS payload)."""
 import json
 import os
 import subprocess
@@ -17,6 +17,7 @@ from directdemod_tpu import cli as jcli
 from directdemod_tpu_torch import cli
 from tests.apt_synth import synthesize
 from tests.test_cli import _write_wav
+from tests.test_torch_afsk import _capture
 
 torch.set_num_threads(1)
 
@@ -138,8 +139,54 @@ def test_cli_noise_only_capture(tmp_path):
     assert not os.path.exists(out + ".png")
 
 
+APRS_NAME = "SDRSharp_20200101_000000Z_145813000Hz_IQ.wav"
+
+
+@pytest.fixture(scope="module")
+def aprs_wav(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("cli_aprs") / APRS_NAME)
+    _write_wav(path, _capture(["cli parity payload"]), scale=100.0)
+    return path
+
+
+def test_cli_afsk_matches_jax_cli(aprs_wav, tmp_path, monkeypatch, capsys):
+    """-d afsk1200 with the centre frequency from the file name (-ce): both
+    CLIs print the payload and report the same channel."""
+    monkeypatch.chdir(tmp_path)
+    reps, printed = {}, {}
+    for name, main in (("port", cli.main), ("jax", jcli.main)):
+        reps[name] = str(tmp_path / f"{name}.json")
+        capsys.readouterr()
+        assert main(["-ce", "-f", "145825000", "-d", "afsk1200", "-r",
+                     reps[name], aprs_wav]) == 0
+        printed[name] = capsys.readouterr().out
+    assert "cli parity payload" in printed["port"]
+    assert "cli parity payload" in printed["jax"]
+    port = json.load(open(reps["port"]))
+    ref = json.load(open(reps["jax"]))
+    assert port["centreFreq"] == ref["centreFreq"] == 145813000
+    p, r = port["channels"][0], ref["channels"][0]
+    for key in ("frequency", "offset", "usefulness", "decoder", "filesCreated",
+                "resident"):
+        assert p[key] == r[key], key
+    assert p["usefulness"] == 1 and p["offset"] == 12000
+    assert p["device"] == "cpu" and p["decodeSeconds"] > 0
+
+
+def test_cli_afsk_noise_only_capture(tmp_path, capsys):
+    rng = np.random.default_rng(2)
+    n = 400_000
+    iq = (0.3 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))).astype(np.complex64)
+    path = str(tmp_path / APRS_NAME)
+    _write_wav(path, iq, scale=60.0)
+    report = str(tmp_path / "r.json")
+    assert cli.main(["-c", "145813000", "-f", "145825000", "-d", "afsk1200",
+                     "-r", report, path]) == 0
+    assert capsys.readouterr().out.strip().endswith("None")
+    assert json.load(open(report))["channels"][0]["usefulness"] == 0
+
+
 @pytest.mark.parametrize("args", [
-    ["-f", "137620000", "-d", "afsk1200"],
     ["-f", "137620000", "-d", "funcube"],
     ["-f", "137620000", "-d", "meteor"],
     ["-f", "137620000", "-d", "noaa", "--map"],

@@ -1,5 +1,6 @@
-"""The port on a CUDA card: K1 against its plain version, and the card's
-front end and NOAA decode against the same code on the CPU.
+"""The port on a CUDA card: K1 and K2 against their plain versions, and the
+card's front end, NOAA decode and AFSK decode against the same code on the
+CPU.
 
 Every test here needs a card and skips without one. The file imports no
 jax, so on a machine without jax it runs alone:
@@ -8,10 +9,11 @@ jax, so on a machine without jax it runs alone:
 
 Tolerances: K1 and its plain version are both fp32 and sum in different
 orders, so wrapped phase differences are held to the JAX suite's bars for
-fp32 phase outputs (99.9th percentile < 1e-4, max < 2e-2); decodes on the
-card and on the CPU to the bars of tests/test_torch_noaa.py (equal crude
-syncs, image within one uint8 level on under 1 % of pixels, accurate syncs
-within +/-1 sample)."""
+fp32 phase outputs (99.9th percentile < 1e-4, max < 2e-2); K2 and its plain
+version compare the same float32 values, so their events must be equal;
+decodes on the card and on the CPU to the bars of tests/test_torch_noaa.py
+(equal crude syncs, image within one uint8 level on under 1 % of pixels,
+accurate syncs within +/-1 sample), and AFSK decodes frame for frame."""
 import os
 import sys
 
@@ -21,12 +23,14 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import FS, synth_pass_bytes  # noqa: E402
+from chip_smoke import (FS, APRS_OFFSET_HZ, stress_edges,  # noqa: E402
+                        synth_aprs_bytes, synth_pass_bytes)
 from directdemod_tpu_torch import constants  # noqa: E402
 from directdemod_tpu_torch.io import sources  # noqa: E402
+from directdemod_tpu_torch.models.afsk1200 import Afsk1200Decoder  # noqa: E402
 from directdemod_tpu_torch.models.frontend import DdcFm, DdcFmStream  # noqa: E402
 from directdemod_tpu_torch.models.noaa import NoaaDecoder  # noqa: E402
-from directdemod_tpu_torch.ops import ddc, design  # noqa: E402
+from directdemod_tpu_torch.ops import ddc, design, peaks  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -39,8 +43,8 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _fe():
-    return DdcFm(FS, 30000, design.blackmanharris(151), 60000)
+def _fe(bw=60000):
+    return DdcFm(FS, 30000, design.blackmanharris(151), bw)
 
 
 def _phase_close(a, b):
@@ -49,9 +53,10 @@ def _phase_close(a, b):
         np.percentile(d, 99.9), d.max())
 
 
+@pytest.mark.parametrize("bw", [60000, 22050])      # J = 34 (NOAA), 92 (AFSK)
 @pytest.mark.parametrize("out_len", [1, 127, 128, 129, 5000, 100_003])
-def test_kernel_matches_plain(dev, out_len):
-    fe = _fe()
+def test_kernel_matches_plain(dev, out_len, bw):
+    fe = _fe(bw)
     j, k = fe.stride, fe.ntaps
     rng = np.random.default_rng(out_len)
     raw = torch.from_numpy(rng.integers(0, 256, 2 * ((out_len - 1) * j + k))
@@ -76,6 +81,69 @@ def test_kernel_rejects_mixed_devices(dev):
     cp = torch.zeros(1, dtype=torch.complex64, device=dev)
     with pytest.raises(ValueError):
         ddc.ddc_fm_u8(raw, taps_rev, rot.to(dev), cp, j, 10)
+
+
+def _walk_args(y, lookahead):
+    limit = y.shape[0] - lookahead
+    fmax, fmin = peaks.forward_window_extrema(y, lookahead)
+    return y[:limit], fmax[:limit].contiguous(), fmin[:limit].contiguous()
+
+
+@pytest.mark.parametrize("n,lookahead,delta", [
+    (100_011, 11, 0.0), (100_011, 11, 0.1), (4096 + 11, 11, 0.0),
+    (8193 + 11, 11, 0.0), (5000, 1, 0.0), (70_000, 500, 0.0), (12, 11, 0.0)])
+def test_walk_kernel_matches_plain(dev, n, lookahead, delta):
+    y = stress_edges(n, n, dev)
+    args = _walk_args(y, lookahead)
+    before = peaks.LAUNCHES
+    got = peaks.lookahead_walk(*args, delta)
+    want = peaks.lookahead_walk_plain(*args, delta)
+    assert peaks.LAUNCHES == before + 1
+    assert got[0].device == y.device and got[0].shape == want[0].shape
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_walk_kernel_densest_walk(dev):
+    """A fire every other sample fills the limit // 2 + 2 event buffer as
+    far as any input can."""
+    y = torch.tensor([1.0, 0.0, 0.0, 1.0] * 5000, device=dev)
+    args = _walk_args(y, 1)
+    got = peaks.lookahead_walk(*args, 0.0)
+    want = peaks.lookahead_walk_plain(*args, 0.0)
+    assert got[0].shape[0] >= args[0].shape[0] // 2 - 2
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_walk_kernel_rejects_bad_arguments(dev):
+    y = stress_edges(1000, 0, dev)
+    y_, fmax, fmin = _walk_args(y, 11)
+    with pytest.raises(ValueError):                      # mixed devices
+        peaks.lookahead_walk(y_, fmax.cpu(), fmin, 0.0)
+    with pytest.raises(ValueError):                      # negative delta
+        peaks.lookahead_walk(y_, fmax, fmin, -1.0)
+    with pytest.raises(ValueError):                      # float64
+        peaks.lookahead_walk(y_.double(), fmax.double(), fmin.double(), 0.0)
+
+
+def test_afsk_decode_on_the_card_matches_cpu(dev, monkeypatch):
+    """A 20 s APRS capture held on the card (block 0 shortened so the
+    resident front end runs K1 over the remainder) decodes as on the CPU,
+    frame for frame."""
+    monkeypatch.setattr(constants, "PROC_CHUNKSIZE", 4_000_000)
+    raw, infos = synth_aprs_bytes(20.0, dev, seed=3)
+    out = {}
+    for where, data in (("cuda", raw), ("cpu", raw.cpu())):
+        before = ddc.LAUNCHES, peaks.LAUNCHES
+        dec = Afsk1200Decoder(sources.DeviceRawSource(data, FS), APRS_OFFSET_HZ)
+        frames = dec.get_frames()
+        out[where] = ([(f.info, f.source, f.destination, f.start_bit)
+                       for f in frames], dec.useful,
+                      (ddc.LAUNCHES - before[0], peaks.LAUNCHES - before[1]))
+    assert out["cuda"][2] == (1, 1) and out["cpu"][2] == (0, 0)
+    assert out["cuda"][:2] == out["cpu"][:2]
+    assert [f[0] for f in out["cuda"][0]] == infos and out["cuda"][1] == 1
 
 
 def test_blocked_stream_from_a_file_matches_cpu(dev, tmp_path):
