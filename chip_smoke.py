@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's two decode paths, NOAA APT and AFSK1200/APRS, on the
-card and fails (non-zero exit, no result line) on any error. Phases, in
-order:
+Drives the port's four decode paths, NOAA APT, AFSK1200/APRS, Funcube BPSK
+and Meteor-M2 QPSK, on the card and fails (non-zero exit, no result line)
+on any error. Phases, in order:
 
 1. check that a CUDA device exists and print its name and power limit;
-2. build the CUDA kernels K1 (`csrc/ddc_fm_u8.cu`) and K2
-   (`csrc/lookahead_walk.cu`) from the checkout, both compilers at once;
+2. build the CUDA kernels K1 (`csrc/ddc_fm_u8.cu`), K2
+   (`csrc/lookahead_walk.cu`) and K3 (`csrc/symbol_scan.cu`) from the
+   checkout, all compilers at once;
 3. hold K1 against its plain PyTorch version and an fp64 oracle at the
    NOAA path's block shape (J=34, K=151, one 20,000,000-sample block plus
    its history) and time both with CUDA events;
@@ -30,7 +31,23 @@ order:
    and K2 ran on that path; then hold K2 against its plain version on the
    first 2^21 samples of that decode's own edge strength;
 9. run the command-line interface on a 30-second APRS IQ.wav;
-10. print the kernel table as one JSON line, then the result line
+10. hold K3 against its plain version on 12,000,000-sample BPSK and QPSK
+    streams, sequential and with 8 segments: symbol indices, minsync flags
+    and needle choices equal, the largest phase difference printed; time
+    K3 with CUDA events;
+11. synthesize a 10-minute Funcube capture (1,228,800,000 samples, 2.46 GB,
+    121 frames) on the card and decode it from a DeviceRawSource with
+    FuncubeDecoder, sequential, cold and then warm (the block loop, 62 K3
+    launches with the scan state carried), checking that every planted
+    frame after the first comes back at the synthesizer's sync delay and
+    that K3 ran; then the first 60 s with 32 segments (the whole-capture
+    path, one K3 launch) against the sequential decode of the same 60 s;
+12. synthesize a 2-minute Meteor-M2 capture (8.64 M symbols, 1,091
+    frames) and decode it sequentially, cold and warm (>= 95 % of the
+    planted frames, K3 ran), then with 32 segments;
+13. run the command-line interface on 30-second IQ.wav files:
+    `-d funcube --freqshift` and `-d meteor --segments=8`;
+14. print the kernel table as one JSON line, then the result line
     {"ok": true, "device": {...}} last.
 
 Imports nothing of JAX.
@@ -530,6 +547,342 @@ def phase9_afsk_cli(dev) -> None:
           f"{ch['decodeSeconds']}, printed {out.strip()!r}", flush=True)
 
 
+# ---------------------------------------------------------------- PSK slice
+FC_OFFSET_HZ = 5_000            # channel offset of the Funcube captures
+FC_CARRIER_ERR_HZ = 200         # carrier error on top of it
+FC_SYNC = "101000110001000000000001010111100"
+FC_SPACING_S = 4.98
+MM_OFFSET_HZ = 4_000            # Meteor channel offset
+MM_CARRIER_ERR_HZ = 100
+MM_SPACING_S = 0.11
+PSK_NOISE = 2.0                 # complex noise per component, in byte units
+# Decoded sync minus the planted frame's first sample, measured by
+# tests/test_torch_psk_synth.py on these synthesizers: the correlation
+# reports the needle's centre, behind the low-pass's delay.
+FC_SYNC_DELAY = 28_355
+MM_SYNC_DELAY = 872.5
+FC_SYNC_TOL = 40                # samples, around FC_SYNC_DELAY
+MM_SYNC_TOL = 20.0
+
+
+def _psk_bytes(out: torch.Tensor, s: int, e: int, bb: torch.Tensor,
+               freq_hz: int, gen: torch.Generator) -> None:
+    """Samples [s, e) of the complex baseband `bb` (float64 I, Q pairs as a
+    complex128 tensor) moved to +freq_hz, plus noise, as uint8 IQ bytes at
+    x + 127.5 into `out`. The carrier phase takes (freq * t) mod fs in
+    exact integers, so it stays exact at any sample index."""
+    dev = bb.device
+    t = torch.arange(s, e, dtype=torch.int64, device=dev)
+    ph = (2 * np.pi / FS) * torch.remainder(freq_hz * t, FS).double()
+    x = bb * torch.polar(torch.ones_like(ph), ph)
+    for k, part in enumerate((x.real, x.imag)):
+        noisy = part + PSK_NOISE * torch.randn(e - s, dtype=torch.float64,
+                                               device=dev, generator=gen)
+        out[2 * s + k: 2 * e: 2] = torch.clamp(torch.round(noisy + 127.5),
+                                               0, 255).to(torch.uint8)
+
+
+def funcube_frames(seconds: float) -> list:
+    """Planted frame times: every 4.98 s from 1.0 s while the 33-bit sync
+    and 0.2 s after it fit."""
+    out, ft = [], 1.0
+    while ft + 33 / 1200 + 0.2 < seconds:
+        out.append(ft)
+        ft += FC_SPACING_S
+    return out
+
+
+def clear_false_syncs(bits: np.ndarray, sync: np.ndarray, keep: np.ndarray,
+                      margin: int) -> None:
+    """Flip filler bits until no window of len(sync) bits clear of the
+    planted frames (`keep`) lies within `margin` bits of the sync or of its
+    complement. The detectors fire on near-matches (Funcube: 4 of
+    33 bits), which random filler data produces about once a minute; the
+    smoke run holds the decoders to the planted frames only."""
+    L = len(sync)
+    # windows that overlap a planted frame fire next to it, in its cluster
+    touches = np.convolve(keep, np.ones(L, int))[L - 1:len(bits)] > 0
+    for _ in range(64):
+        win = np.lib.stride_tricks.sliding_window_view(bits, L)
+        d = np.count_nonzero(win != sync, axis=1)
+        bad = np.flatnonzero(((d < margin) | (d > L - margin)) & ~touches)
+        if len(bad) == 0:
+            return
+        for w in bad:
+            diff = bits[w:w + L] != sync
+            dw = int(diff.sum())
+            if margin <= dw <= L - margin:
+                continue                # an earlier flip fixed it
+            # move the window away from the sync (or its complement)
+            j = np.flatnonzero(~diff if dw < margin else diff)
+            bits[w + j[len(j) // 2]] ^= 1
+    raise RuntimeError("could not clear the filler of false syncs")
+
+
+def synth_funcube_bytes(seconds: float, device, seed: int = 0,
+                        chunk: int = 1 << 25) -> tuple[torch.Tensor, np.ndarray]:
+    """Funcube capture of `seconds` as interleaved uint8 IQ on `device`: 1200
+    bps random bits (each spread over 10 symbols at 12 ksym/s, rectangular)
+    at +-90 (filler kept 8 bits from the sync, `clear_false_syncs`), the
+    33-bit frame sync at `funcube_frames`, on a 5 kHz offset
+    with a 200 Hz carrier error, complex noise of 2 per component (the
+    signal of tests/test_psk_sync.py::_bpsk_capture, quantized like an 8-bit
+    SDR). Returns (bytes, first sample of each planted frame)."""
+    rng = np.random.default_rng(seed)
+    n = int(round(seconds * FS))
+    bits = rng.integers(0, 2, n * 1200 // FS + 40)
+    sync = np.asarray([int(c) for c in FC_SYNC])
+    keep = np.zeros(len(bits), bool)
+    starts = []
+    for ft in funcube_frames(seconds):
+        p = int(ft * 1200)
+        bits[p:p + 33] = sync
+        keep[p:p + 33] = True
+        starts.append(-(-p * FS // 1200))
+    clear_false_syncs(bits, sync, keep, 8)
+    lev = torch.as_tensor(bits * 2 - 1, dtype=torch.float64, device=device) * 90.0
+    out = torch.empty(2 * n, dtype=torch.uint8, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    for s in range(0, n, chunk):
+        e = min(n, s + chunk)
+        t = torch.arange(s, e, dtype=torch.int64, device=device)
+        bb = lev[t * 1200 // FS].to(torch.complex128)
+        _psk_bytes(out, s, e, bb, FC_OFFSET_HZ + FC_CARRIER_ERR_HZ, gen)
+    return out, np.asarray(starts, np.int64)
+
+
+def meteor_frames(seconds: float) -> list:
+    out, ft = [], 0.05
+    while ft + 60 / 72000 + 0.03 < seconds:
+        out.append(ft)
+        ft += MM_SPACING_S
+    return out
+
+
+def synth_meteor_bytes(seconds: float, device, seed: int = 1,
+                       chunk: int = 1 << 25) -> tuple[torch.Tensor, np.ndarray]:
+    """Meteor-M2 capture of `seconds` as interleaved uint8 IQ on `device`:
+    72 ksym/s QPSK (rectangular symbols, +-64 on each rail), the 120-entry
+    sync on the I and Q rails (60 symbols) every 0.11 s, on a 4 kHz offset
+    with a 100 Hz carrier error, complex noise of 2 per component (the
+    signal of tests/test_psk_sync.py::_qpsk_capture, quantized). Returns
+    (bytes, first sample of each planted frame)."""
+    from directdemod_tpu_torch.models.meteorm2 import _SYNC
+    rng = np.random.default_rng(seed)
+    n = int(round(seconds * FS))
+    n_sym = n * 72000 // FS + 200
+    bi, bq = rng.integers(0, 2, n_sym), rng.integers(0, 2, n_sym)
+    starts = []
+    for ft in meteor_frames(seconds):
+        p = int(ft * 72000)
+        bi[p:p + 60] = _SYNC[0::2]
+        bq[p:p + 60] = _SYNC[1::2]
+        starts.append(-(-p * FS // 72000))
+    sym = torch.complex(torch.as_tensor(bi * 2 - 1, dtype=torch.float64),
+                        torch.as_tensor(bq * 2 - 1, dtype=torch.float64)
+                        ).to(device) * 64.0
+    out = torch.empty(2 * n, dtype=torch.uint8, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    for s in range(0, n, chunk):
+        e = min(n, s + chunk)
+        t = torch.arange(s, e, dtype=torch.int64, device=device)
+        _psk_bytes(out, s, e, sym[t * 72000 // FS],
+                   MM_OFFSET_HZ + MM_CARRIER_ERR_HZ, gen)
+    return out, np.asarray(starts, np.int64)
+
+
+def matched_frames(syncs, starts, delay: float, tol: float) -> int:
+    """How many planted frames (first samples `starts`) have a decoded sync
+    within `tol` of start + delay."""
+    syncs = np.sort(np.asarray(syncs, np.float64))
+    if len(syncs) == 0:
+        return 0
+    want = np.asarray(starts, np.float64) + delay
+    pos = np.searchsorted(syncs, want)
+    left = syncs[np.clip(pos - 1, 0, len(syncs) - 1)]
+    right = syncs[np.clip(pos, 0, len(syncs) - 1)]
+    return int(np.sum(np.minimum(np.abs(left - want), np.abs(right - want)) <= tol))
+
+
+def k3_streams(n: int, seed: int = 0) -> dict:
+    """Filtered-baseband-like test streams for K3 (complex64, host): BPSK
+    at 1200 bps spread to 12 ksym/s with the Funcube sync planted every
+    0.5 s, and 72 ksym/s QPSK with the Meteor sync every 0.11 s, each on a
+    small carrier offset with complex noise."""
+    from directdemod_tpu_torch.models.meteorm2 import _SYNC
+    rng = np.random.default_rng(seed)
+    t = np.arange(n)
+    bits = rng.integers(0, 2, n * 1200 // FS + 40)
+    for p in range(40, len(bits) - 40, 600):
+        bits[p:p + 33] = [int(c) for c in FC_SYNC]
+    bb = (bits[t * 1200 // FS] * 2 - 1) * 90.0
+    noise = 2.0 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    bpsk = bb * np.exp(2j * np.pi * 180.0 * t / FS) + noise
+    n_sym = n * 72000 // FS + 200
+    bi, bq = rng.integers(0, 2, n_sym), rng.integers(0, 2, n_sym)
+    for p in range(100, n_sym - 100, 7920):
+        bi[p:p + 60], bq[p:p + 60] = _SYNC[0::2], _SYNC[1::2]
+    k = t * 72000 // FS
+    qpsk = ((bi[k] * 2 - 1) + 1j * (bq[k] * 2 - 1)) * 64.0 \
+        * np.exp(2j * np.pi * 4100.0 * t / FS) + noise
+    return {"bpsk": bpsk.astype(np.complex64), "qpsk": qpsk.astype(np.complex64)}
+
+
+def k3_compare(pll, kind: str, x: np.ndarray, dev, segments: int = 1) -> dict:
+    """K3 against its plain version on the stream x: sequential (one
+    thread) or `segments` segments (one launch, a thread each). Symbol
+    indices, minsync flags and needle choices must be equal; prints the
+    largest phase difference. Times K3 with CUDA events and the plain
+    version with the host clock (one run)."""
+    from directdemod_tpu_torch.models.funcube import FuncubeDecoder
+    from directdemod_tpu_torch.models.meteorm2 import MeteorM2Decoder
+    from directdemod_tpu_torch.io.sources import ArraySource
+    cls = FuncubeDecoder if kind == "bpsk" else MeteorM2Decoder
+    det = cls(ArraySource(x[:16], FS), 0)
+    p, s0, s1 = det.p, det.cfg.sym_sync, det.cfg.sym_sync_alt
+    xc = torch.from_numpy(x)
+    xd = xc.to(dev)
+
+    def run(xx):
+        if segments == 1:
+            return pll.symbol_scan(p, xx, pll.initial_state(p, len(s0), 1, xx.device),
+                                   s0, s1)[1]
+        return pll.symbol_scan_segments(p, xx, s0, s1, segments, 2000)[0]
+
+    got = run(xd)
+    t0 = time.perf_counter()
+    want = run(xc)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    same = got.count == want.count and all(
+        torch.equal(a.cpu(), b) for a, b in
+        zip((got.a_idx, got.minsync, got.chosen), (want.a_idx, want.minsync, want.chosen)))
+    err = float((got.phase_out.cpu() - want.phase_out).abs().max()) \
+        if got.count == want.count else float("inf")
+    ms = cuda_ms(lambda: run(xd), 3)
+    print(f"phase 10 ({kind}, {segments} segment(s)): K3 over {len(x)} samples, "
+          f"{got.count} symbols ({int(got.minsync.sum())} minsync): a_idx, "
+          f"minsync, chosen equal to the plain version: {same}; largest phase "
+          f"difference {err:.3e} rad; K3 {ms:.4f} ms ({ms * 1e6 / got.count:.1f} ns "
+          f"a symbol), plain {plain_ms:.1f} ms on {card_line()}", flush=True)
+    check(same and got.count > 0, f"K3 {kind} equals its plain version")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "symbols": got.count}
+
+
+def psk_decode(cls, raw: torch.Tensor, offset: float, dev, label: str, **kw):
+    """Decode the bytes held on the card with a fresh decoder; returns
+    (syncs, decoder, wall seconds, K3 launches)."""
+    from directdemod_tpu_torch.io.sources import DeviceRawSource
+    from directdemod_tpu_torch.ops import pll
+    dec = cls(DeviceRawSource(raw, FS), offset, device=dev, **kw)
+    torch.cuda.reset_peak_memory_stats(dev)
+    pll.LAUNCHES = 0
+    t0 = time.perf_counter()
+    syncs = dec.get_syncs()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = pll.LAUNCHES
+    n = raw.shape[0] // 2
+    stages = {k: round(v, 4) for k, v in dec.stage_seconds.items()}
+    print(f"{label}: decode of a {n / FS:.1f} s capture in {wall:.3f} s wall "
+          f"({n / FS / wall:.1f}x real time), stages (CUDA events) "
+          f"{json.dumps(stages)}, peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, useful "
+          f"{dec.useful}, {len(syncs)} syncs, K3 launches {launches} on "
+          f"{card_line()}", flush=True)
+    return syncs, dec, wall, launches
+
+
+def phase11_funcube(dev) -> int:
+    """A 10-minute Funcube capture synthesized on the card and decoded from
+    the bytes held there, sequential, cold and then warm (the block loop,
+    K3 once a block with the state carried); every planted frame after the
+    first must come back at FC_SYNC_DELAY. Then the first 60 s with 32
+    segments on the whole-capture path against the sequential decode of
+    the same 60 s. Returns the warm run's K3 launch count."""
+    from directdemod_tpu_torch.models.funcube import FuncubeDecoder
+    t0 = time.perf_counter()
+    raw, starts = synth_funcube_bytes(600.0, dev, seed=0)
+    torch.cuda.synchronize()
+    print(f"phase 11: synthesized {raw.shape[0] // 2} samples ({raw.shape[0] / 1e9:.2f} "
+          f"GB, {len(starts)} frames) in {time.perf_counter() - t0:.1f} s", flush=True)
+    for run in ("cold", "warm"):
+        syncs, dec, _, launches = psk_decode(FuncubeDecoder, raw, FC_OFFSET_HZ, dev,
+                                             f"phase 11 ({run})")
+        got = matched_frames(syncs, starts[1:], FC_SYNC_DELAY, FC_SYNC_TOL)
+        check(dec.useful == 1, "useful == 1")
+        check(len(syncs) == len(starts) - 1 and got == len(starts) - 1,
+              f"{got} of {len(starts) - 1} frames after the first at "
+              f"+{FC_SYNC_DELAY} +- {FC_SYNC_TOL}, {len(syncs)} syncs")
+        check(launches > 0, "the decode launched K3")
+    head = raw[: 2 * 60 * FS]
+    seq, _, _, _ = psk_decode(FuncubeDecoder, head, FC_OFFSET_HZ, dev,
+                              "phase 11 (first 60 s, sequential)")
+    par, pdec, _, plaunch = psk_decode(FuncubeDecoder, head, FC_OFFSET_HZ, dev,
+                                       "phase 11 (first 60 s, 32 segments)",
+                                       n_segments=32)
+    far = max((min(abs(a - b) for b in par) for a in seq), default=float("inf"))
+    print(f"phase 11: 32-segment syncs vs sequential: {len(par)} vs {len(seq)}, "
+          f"largest distance {far:.1f} samples", flush=True)
+    check(pdec.useful == 1 and len(par) == len(seq) > 0 and far < 0.01 * FS
+          and plaunch == 1, "segmented 60 s agrees with sequential")
+    return launches
+
+
+def phase12_meteor(dev) -> int:
+    """A 2-minute Meteor capture (8.64 M symbols) synthesized on the card
+    and decoded sequentially, cold and warm: useful and >= 95 % of the
+    planted frames at MM_SYNC_DELAY. Then 32 segments against it. Returns
+    the warm run's K3 launch count."""
+    from directdemod_tpu_torch.models.meteorm2 import MeteorM2Decoder
+    raw, starts = synth_meteor_bytes(120.0, dev, seed=1)
+    print(f"phase 12: synthesized {raw.shape[0] // 2} samples, {len(starts)} "
+          f"frames", flush=True)
+    for run in ("cold", "warm"):
+        syncs, dec, _, launches = psk_decode(MeteorM2Decoder, raw, MM_OFFSET_HZ,
+                                             dev, f"phase 12 ({run})")
+        got = matched_frames(syncs, starts, MM_SYNC_DELAY, MM_SYNC_TOL)
+        print(f"phase 12 ({run}): {got} of {len(starts)} planted frames at "
+              f"+{MM_SYNC_DELAY} +- {MM_SYNC_TOL}", flush=True)
+        check(dec.useful == 1 and got >= 0.95 * len(starts),
+              f"{got} of {len(starts)} frames")
+        check(launches > 0, "the decode launched K3")
+    par, pdec, _, _ = psk_decode(MeteorM2Decoder, raw, MM_OFFSET_HZ, dev,
+                                 "phase 12 (32 segments)", n_segments=32)
+    got_par = matched_frames(par, starts, MM_SYNC_DELAY, MM_SYNC_TOL)
+    print(f"phase 12 (32 segments): {got_par} of {len(starts)} planted frames",
+          flush=True)
+    # the approximate mode: a segment re-locks over its warm-up and can
+    # miss frames near its edges (docs/experiments.md D13)
+    check(pdec.useful == 1 and got_par >= 0.5 * len(starts),
+          f"segmented: {got_par} of {len(starts)} frames")
+    return launches
+
+
+def phase13_psk_cli(dev) -> None:
+    """The Funcube CLI with --freqshift and the Meteor CLI with
+    --segments=8, each on a 30-second IQ.wav synthesized on the card."""
+    raw, starts = synth_funcube_bytes(30.0, dev, seed=2)
+    _, ch, files, wall = run_cli(raw, "fc_145865000Hz_IQ.wav",
+                                 ["-c", "145865000", "-f", "145870000",
+                                  "-d", "funcube", "--freqshift"])
+    check(ch["usefulness"] == 1 and ch["device"].startswith("cuda")
+          and "fc_145865000Hz_IQ_f1.csv" in files, f"funcube report {ch}")
+    print(f"phase 13: funcube --freqshift CLI rc 0 in {wall:.1f} s, decodeSeconds "
+          f"{ch['decodeSeconds']}", flush=True)
+    raw, starts = synth_meteor_bytes(30.0, dev, seed=3)
+    _, ch, files, wall = run_cli(raw, "mm_137100000Hz_IQ.wav",
+                                 ["-c", "137096000", "-f", "137100000",
+                                  "-d", "meteor", "--segments=8"])
+    check(ch["usefulness"] == 1 and ch["device"].startswith("cuda")
+          and "mm_137100000Hz_IQ_f1.csv" in files, f"meteor report {ch}")
+    print(f"phase 13: meteor --segments=8 CLI rc 0 in {wall:.1f} s, decodeSeconds "
+          f"{ch['decodeSeconds']}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -540,12 +893,13 @@ def main() -> int:
           f"CUDA {torch.version.cuda}", flush=True)
 
     from directdemod_tpu_torch.models.frontend import DdcFm
-    from directdemod_tpu_torch.ops import _build, ddc, design, peaks
+    from directdemod_tpu_torch.ops import _build, ddc, design, peaks, pll
     t0 = time.perf_counter()
-    _build.build_all(["ddc_fm_u8", "lookahead_walk"])
+    _build.build_all(["ddc_fm_u8", "lookahead_walk", "symbol_scan"])
     ddc.build()
     peaks.build()
-    print(f"phase 2: K1 and K2 built and loaded in "
+    pll.build()
+    print(f"phase 2: K1, K2 and K3 built and loaded in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     fe = DdcFm(FS, OFFSET_HZ, design.blackmanharris(151), 60_000)
@@ -564,6 +918,14 @@ def main() -> int:
     afsk_k1, afsk_k2, k2 = phase8_afsk_decode(ddc, peaks, dev)
     phase9_afsk_cli(dev)
 
+    streams = k3_streams(12_000_000)
+    k3 = {f"{kind}_{segs}": k3_compare(pll, kind, streams[kind], dev, segs)
+          for kind in ("bpsk", "qpsk") for segs in (1, 8)}
+    del streams
+    fc_k3 = phase11_funcube(dev)
+    mm_k3 = phase12_meteor(dev)
+    phase13_psk_cli(dev)
+
     print(json.dumps({"kernels": [
         {"name": "ddc_fm_u8", "route": "cuda",
          "source": "directdemod_tpu_torch/csrc/ddc_fm_u8.cu",
@@ -579,7 +941,16 @@ def main() -> int:
          **k2, "max_abs_err": max([k2["max_abs_err"]]
                                   + [s["max_abs_err"] for s in stress]),
          "stress_ms": [s["ms"] for s in stress],
-         "stress_plain_ms": [s["plain_ms"] for s in stress]}]}))
+         "stress_plain_ms": [s["plain_ms"] for s in stress]},
+        {"name": "symbol_scan", "route": "cuda",
+         "source": "directdemod_tpu_torch/csrc/symbol_scan.cu",
+         "replaces": "directdemod_tpu/ops/pll_scalar.py:67",
+         "launches": fc_k3 + mm_k3,
+         "launches_by_path": {"funcube": fc_k3, "meteor": mm_k3},
+         "max_abs_err": max(v["max_abs_err"] for v in k3.values()),
+         "ms": k3["bpsk_1"]["ms"], "plain_ms": k3["bpsk_1"]["plain_ms"],
+         **{f"{key}_{f}": v[f] for key, v in k3.items()
+            for f in ("ms", "plain_ms", "symbols")}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

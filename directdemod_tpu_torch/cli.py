@@ -1,7 +1,7 @@
 """Command-line interface of the port.
 
-Port of `directdemod_tpu/cli.py:23-302` for the NOAA APT and AFSK1200
-decoders: the same
+Port of `directdemod_tpu/cli.py:23-302` for the NOAA APT, AFSK1200, Funcube
+and Meteor-M2 decoders: the same
 getopt grammar and its quirks (`-sync` parses as `-s ync`, `-noimage` as
 `-n oimage`, `-ce` as `-c e`, the centre frequency then coming from the file
 name), the same per-channel fence and the same JSON report (`-r`), with
@@ -22,7 +22,7 @@ import torch
 from . import constants
 from .io import sinks, sources
 
-NOT_PORTED_FLAGS = ("--map", "--tle", "--freqshift", "--mesh", "--segments")
+NOT_PORTED_FLAGS = ("--map", "--tle", "--mesh")
 
 
 def usage(err: str = "") -> None:
@@ -42,7 +42,7 @@ Common options:
 Channels:
 \t-f <in Hz> : For every channel add a -f flag with respective frequency
 \tOptions for each channel: (if set, must follow -f of the respective channel)
-\t\t-d <str> : decoder for this channel (noaa, afsk1200)
+\t\t-d <str> : decoder for this channel (noaa, afsk1200, funcube, meteor)
 \t\t-b <in Hz> : channel bandwidth (in order)
 \t\t-o <str> : output file names (in order)
 \t\t-s <in sample#> : starts of signals (in order)
@@ -51,6 +51,9 @@ Channels:
 Decoder flags:
 \t-d noaa : APT decoder (-sync writes sync csv, -noimage skips the image)
 \t-d afsk1200 : APRS decoder (prints the last decoded payload)
+\t-d funcube : Funcube BPSK sync detector (--freqshift Doppler correction)
+\t-d meteor : Meteor QPSK sync detector
+\t--segments=<n> : segment-parallel PLL scan for funcube/meteor
 \t--resident : copy the capture once into device memory and decode from
 \t             there (falls back to the blocked feed when it does not fit)
 """)
@@ -88,6 +91,9 @@ def main(argv=None) -> int:
         return 1
 
     resident = "--resident" in flags
+    corr_freq_shift = "--freqshift" in flags
+    # --segments=<n>: segment-parallel PLL scan for the PSK decoders
+    n_segments = next((int(v) for k, v in optlist if k == "--segments"), None)
     calc_sync = any(o == ("-s", "ync") for o in optlist)
     calc_image = not any(o == ("-n", "oimage") for o in optlist)
     report_file = next((v for k, v in optlist if k == "-r"), None)
@@ -108,7 +114,7 @@ def main(argv=None) -> int:
     if max(len(starts), len(ends), len(outs), len(bandwidths)) > len(freqs):
         usage("number of starts/ends/outfilenames cannot be greater than frequencies given")
         return 1
-    other = sorted(set(decoders) - {"noaa", "afsk1200"})
+    other = sorted(set(decoders) - {"noaa", "afsk1200", "funcube", "meteor"})
     if other:
         usage(f"decoder {', '.join(other)}: not yet ported")
         return 1
@@ -205,11 +211,32 @@ def main(argv=None) -> int:
                 entry["syncDetect"] = calc_sync
                 entry["image"] = calc_image
 
-            else:   # afsk1200
+            elif decoders[i] == "afsk1200":
                 from .models.afsk1200 import Afsk1200Decoder
                 dec = Afsk1200Decoder(src_i, freq_offset, bandwidths[i],
                                       device=device)
                 print(dec.get_msg())
+                entry["usefulness"] = dec.useful
+
+            else:   # funcube, meteor
+                if decoders[i] == "funcube":
+                    from .models.funcube import FuncubeDecoder
+                    dec = FuncubeDecoder(src_i, freq_offset, bandwidths[i],
+                                         report.get("centreFreq"), freqs[i],
+                                         corr_freq_shift, n_segments=n_segments,
+                                         device=device)
+                    title = "Funcube syncs"
+                else:
+                    from .models.meteorm2 import MeteorM2Decoder
+                    dec = MeteorM2Decoder(src_i, freq_offset, bandwidths[i],
+                                          n_segments=n_segments, device=device)
+                    title = "Meteor syncs"
+                syncs = dec.get_syncs()
+                logging.info("Complete: detected %d syncs", len(syncs))
+                csv_file = (f"{stem}_f{i + 1}.csv" if outs[i] is None
+                            else outs[i] + ".csv")
+                sinks.write_csv(csv_file, [syncs], titles=[title])
+                entry["filesCreated"].append(csv_file)
                 entry["usefulness"] = dec.useful
 
             entry["decodeSeconds"] = round(perf_counter() - t_dec, 3)

@@ -1,4 +1,4 @@
-"""Tunables and protocol constants of the NOAA APT and AFSK1200 slices.
+"""Tunables and protocol constants of the NOAA APT, AFSK1200 and PSK slices.
 
 Copy of the matching entries of `directdemod_tpu/constants.py` (the JAX
 package cannot be imported without importing jax). Values must stay
@@ -39,3 +39,14 @@ AFSK_BAUDRATE = 1200
 AFSK_MARK_HZ = 1200
 AFSK_SPACE_HZ = 2200
 AFSK_DEFAULT_BW = 22_050
+
+# ---------------------------------------------------------------- Funcube BPSK
+FUNCUBE_SYMRATE = 12_000
+FUNCUBE_DEFAULT_BW = 7_000
+FUNCUBE_SYNC_BITS = "101000110001000000000001010111100"  # 33-bit frame sync
+FUNCUBE_FRAME_SPACING_S = 4.98
+
+# ---------------------------------------------------------------- Meteor-M2 QPSK
+METEOR_SYMRATE = 72_000
+METEOR_DEFAULT_BW = 70_000
+METEOR_FRAME_SPACING_S = 0.11

@@ -87,6 +87,7 @@ class _HostBytes(_Windowed):
 
     def __init__(self, data: np.ndarray, samp_freq: int):
         self._bytes = data
+        self.memmap = data            # the whole byte stream (Doppler waterfall)
         self.sampFreq = int(samp_freq)
         self._init_window(len(data) // 2)
 

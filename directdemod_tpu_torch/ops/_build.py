@@ -22,6 +22,10 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+# Flags of one source on top of NVCC_FLAGS. K3 must not contract a * b + c
+# into a fused multiply-add where the JAX scan rounds twice: it writes out
+# every fused multiply-add it wants.
+SOURCE_FLAGS = {"symbol_scan": ("-fmad=false",)}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -36,11 +40,16 @@ def nvcc_path() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
+def flags(name: str) -> tuple:
+    """The nvcc flags of `csrc/<name>.cu`."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> str:
     """Where the build of `csrc/<name>.cu` lives for its current source."""
     with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
         h = hashlib.sha256(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags(name)).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
@@ -55,7 +64,7 @@ def build(name: str) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+    cmd = [nvcc_path(), *flags(name), "-o", tmp,
            os.path.join(CSRC, name + ".cu")]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)

@@ -145,10 +145,16 @@ class IirFilter:
 
     def apply(self, x: torch.Tensor, z: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Exact lfilter of the real 1-D `x` through the cascade from state
-        `z`; returns (y, z')."""
+        """Exact lfilter of the 1-D `x` through the cascade from state `z`;
+        returns (y, z'). The coefficients are real, so a complex `x` is its
+        real and imaginary parts filtered as two real signals, from the real
+        and imaginary parts of `z` (a real `z` is a zero imaginary state);
+        z' is then complex."""
         if x.is_complex():
-            raise ValueError("IirFilter.apply takes real signals")
+            zc = z if z.is_complex() else torch.complex(z, torch.zeros_like(z))
+            y_re, z_re = self.apply(x.real.contiguous(), zc.real.contiguous())
+            y_im, z_im = self.apply(x.imag.contiguous(), zc.imag.contiguous())
+            return torch.complex(y_re, y_im), torch.complex(z_re, z_im)
         n = x.shape[0]
         L = min(self.block, max(16, n))
         np_last = n - (-(-n // L) - 1) * L

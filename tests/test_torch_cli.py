@@ -1,8 +1,9 @@
-"""The port's command line (`directdemod_tpu_torch.cli`) for `-d noaa` and
-`-d afsk1200`: the reference's flag grammar and quirks, the JSON report,
-and the products held against the JAX package's CLI on the same IQ.wav
-(image within one uint8 level on under 1 % of pixels, accurate syncs within
-+/-1 sample, see tests/test_torch_noaa.py for why; the same APRS payload)."""
+"""The port's command line (`directdemod_tpu_torch.cli`) for `-d noaa`,
+`-d afsk1200`, `-d funcube` and `-d meteor`: the reference's flag grammar
+and quirks, the JSON report, and the products held against the JAX
+package's CLI on the same IQ.wav (image within one uint8 level on under 1 %
+of pixels, accurate syncs within +/-1 sample, see tests/test_torch_noaa.py
+for why; the same APRS payload; the same PSK sync CSV)."""
 import json
 import os
 import subprocess
@@ -18,6 +19,7 @@ from directdemod_tpu_torch import cli
 from tests.apt_synth import synthesize
 from tests.test_cli import _write_wav
 from tests.test_torch_afsk import _capture
+import chip_smoke
 
 torch.set_num_threads(1)
 
@@ -187,11 +189,11 @@ def test_cli_afsk_noise_only_capture(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("args", [
-    ["-f", "137620000", "-d", "funcube"],
-    ["-f", "137620000", "-d", "meteor"],
+    ["-f", "137620000", "-d", "funcube", "--mesh=2"],
+    ["-f", "137620000", "-d", "meteor", "--mesh=4"],
     ["-f", "137620000", "-d", "noaa", "--map"],
     ["-f", "137620000", "-d", "noaa", "--mesh=2"],
-    ["-f", "137620000", "-d", "noaa", "--segments=4"],
+    ["-f", "137620000", "-d", "noaa", "--tle=tle.txt"],
 ])
 def test_cli_not_yet_ported_exits_nonzero(noaa_wav, args, capsys):
     assert cli.main(["-c", "137590000"] + args + [noaa_wav]) != 0
@@ -202,3 +204,47 @@ def test_python_m_entry_point():
     proc = subprocess.run([sys.executable, "-m", "directdemod_tpu_torch", "-h"],
                           cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and "Usage" in proc.stdout
+
+
+def _psk_wav(path, raw: np.ndarray) -> str:
+    chip_smoke.write_iq_wav(path, raw)
+    return path
+
+
+@pytest.mark.parametrize("decoder,extra,name,freqs,synth", [
+    ("funcube", ["--freqshift"], "fc_145865000Hz_IQ.wav",
+     ["-c", "145865000", "-f", "145870000"], "synth_funcube_bytes"),
+    ("meteor", ["--segments=2"], "mm_137100000Hz_IQ.wav",
+     ["-c", "137096000", "-f", "137100000"], "synth_meteor_bytes"),
+])
+def test_cli_psk_matches_jax_cli(tmp_path, monkeypatch, decoder, extra, name,
+                                 freqs, synth):
+    """-d funcube --freqshift and -d meteor --segments=2 on the same IQ.wav
+    through both CLIs: the same report entries; the same Funcube sync CSV;
+    every JAX Meteor sync among the port's. The segmented QPSK scans are
+    the approximate mode, and their Gardner timing runs backwards at times,
+    which turns the last-ulp differences of the two low-pass filters into
+    other trajectories: a segment of either side may miss a frame the other
+    finds (docs/experiments.md D13), never misplace one."""
+    seconds = 7.3 if decoder == "funcube" else 0.5
+    raw, _ = getattr(chip_smoke, synth)(seconds, "cpu", seed=11)
+    wav = _psk_wav(str(tmp_path / name), raw.numpy())
+    monkeypatch.chdir(tmp_path)
+    reps, csvs = {}, {}
+    for tag, main in (("port", cli.main), ("jax", jcli.main)):
+        reps[tag] = str(tmp_path / f"{tag}.json")
+        assert main(freqs + ["-d", decoder] + extra
+                    + ["-o", tag, "-r", reps[tag], wav]) == 0
+        csvs[tag] = open(tmp_path / f"{tag}.csv").read()
+    p = json.load(open(reps["port"]))["channels"][0]
+    r = json.load(open(reps["jax"]))["channels"][0]
+    for key in ("frequency", "offset", "usefulness", "decoder", "resident"):
+        assert p[key] == r[key], key
+    assert p["usefulness"] == 1 and p["device"] == "cpu"
+    assert p["filesCreated"] == ["port.csv"] and r["filesCreated"] == ["jax.csv"]
+    if decoder == "funcube":
+        assert csvs["port"] == csvs["jax"] and csvs["port"].count("\n") >= 2
+    else:
+        rows = {k: v.splitlines() for k, v in csvs.items()}
+        assert rows["port"][0] == rows["jax"][0] == "Meteor syncs,"
+        assert set(rows["jax"][1:]) <= set(rows["port"][1:]) and len(rows["jax"]) > 2

@@ -1,6 +1,6 @@
-"""The port on a CUDA card: K1 and K2 against their plain versions, and the
-card's front end, NOAA decode and AFSK decode against the same code on the
-CPU.
+"""The port on a CUDA card: K1, K2 and K3 against their plain versions, and
+the card's front end and NOAA, AFSK, Funcube and Meteor decodes against the
+same code on the CPU.
 
 Every test here needs a card and skips without one. The file imports no
 jax, so on a machine without jax it runs alone:
@@ -13,7 +13,13 @@ fp32 phase outputs (99.9th percentile < 1e-4, max < 2e-2); K2 and its plain
 version compare the same float32 values, so their events must be equal;
 decodes on the card and on the CPU to the bars of tests/test_torch_noaa.py
 (equal crude syncs, image within one uint8 level on under 1 % of pixels,
-accurate syncs within +/-1 sample), and AFSK decodes frame for frame."""
+accurate syncs within +/-1 sample), and AFSK decodes frame for frame. K3
+and its plain version take the same float32 operations (cos and sin from
+the double-precision functions on both sides), so symbol indices, minsync
+flags and needle choices must be equal and phases agree to 1e-6 rad; PSK
+decodes on the card and the CPU must give the same syncs within 2 samples
+(their low-pass filters sum in another order), Meteor's from its second
+reported sync on."""
 import os
 import sys
 
@@ -23,14 +29,18 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import (FS, APRS_OFFSET_HZ, stress_edges,  # noqa: E402
-                        synth_aprs_bytes, synth_pass_bytes)
+from chip_smoke import (FS, APRS_OFFSET_HZ, FC_OFFSET_HZ,  # noqa: E402
+                        MM_OFFSET_HZ, k3_streams, stress_edges,
+                        synth_aprs_bytes, synth_funcube_bytes,
+                        synth_meteor_bytes, synth_pass_bytes)
 from directdemod_tpu_torch import constants  # noqa: E402
 from directdemod_tpu_torch.io import sources  # noqa: E402
 from directdemod_tpu_torch.models.afsk1200 import Afsk1200Decoder  # noqa: E402
 from directdemod_tpu_torch.models.frontend import DdcFm, DdcFmStream  # noqa: E402
 from directdemod_tpu_torch.models.noaa import NoaaDecoder  # noqa: E402
-from directdemod_tpu_torch.ops import ddc, design, peaks  # noqa: E402
+from directdemod_tpu_torch.models.funcube import FuncubeDecoder  # noqa: E402
+from directdemod_tpu_torch.models.meteorm2 import MeteorM2Decoder  # noqa: E402
+from directdemod_tpu_torch.ops import ddc, design, peaks, pll  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -204,3 +214,114 @@ def test_noaa_decode_on_the_card_matches_cpu(dev, monkeypatch):
     for i in (0, 4):
         assert len(acc[i]) == len(r_acc[i]) > 0
         assert np.max(np.abs(np.subtract(acc[i], r_acc[i]))) <= 1
+
+
+def _psk(kind):
+    cls = FuncubeDecoder if kind == "bpsk" else MeteorM2Decoder
+    det = cls(sources.ArraySource(np.zeros(16, np.complex64), FS), 0)
+    return det.p, det.cfg.sym_sync, det.cfg.sym_sync_alt
+
+
+def _same_symbols(got, want):
+    assert got.count == want.count > 0
+    for a, b in zip((got.a_idx, got.minsync, got.chosen),
+                    (want.a_idx, want.minsync, want.chosen)):
+        assert torch.equal(a.cpu(), b)
+    assert float((got.phase_out.cpu() - want.phase_out).abs().max()) < 1e-6
+
+
+@pytest.mark.parametrize("segments", [1, 8])
+@pytest.mark.parametrize("kind", ["bpsk", "qpsk"])
+def test_scan_kernel_matches_plain(dev, kind, segments):
+    x = torch.from_numpy(k3_streams(600_000, seed=4)[kind])
+    p, s0, s1 = _psk(kind)
+    before = pll.LAUNCHES
+    if segments == 1:
+        st_k, got = pll.symbol_scan(p, x.to(dev), pll.initial_state(p, len(s0), 1, dev),
+                                    s0, s1)
+        st_p, want = pll.symbol_scan_plain(p, x, pll.initial_state(p, len(s0)), s0, s1)
+        assert torch.equal(st_k["i"].cpu(), st_p["i"])
+        assert torch.equal(st_k["f"].cpu(), st_p["f"])
+    else:
+        got, seg_k, own_k = pll.symbol_scan_segments(p, x.to(dev), s0, s1, segments, 500)
+        want, seg_p, own_p = pll.symbol_scan_segments(p, x, s0, s1, segments, 500)
+        assert torch.equal(seg_k.cpu(), seg_p) and torch.equal(own_k.cpu(), own_p)
+    assert pll.LAUNCHES == before + 1
+    _same_symbols(got, want)
+    if kind == "bpsk":
+        assert int(want.minsync.sum()) >= 1
+
+
+def test_scan_kernel_block_split_carry(dev):
+    """Two blocks with the state carried on the card (stage-1 carry across
+    the boundary) equal the plain version's two blocks."""
+    x = torch.from_numpy(k3_streams(400_000, seed=5)["bpsk"])
+    p, s0, s1 = _psk("bpsk")
+    _, whole = pll.symbol_scan_plain(p, x, pll.initial_state(p, 330), s0, s1)
+    split = int(whole.a_idx[1000]) + 100
+    st = pll.initial_state(p, 330, 1, dev)
+    st, first = pll.symbol_scan(p, x[:split].to(dev), st, s0, s1)
+    assert int(st["i"][0, pll.I_STAGE]) == 1
+    st["i"][:, pll.I_ANCHOR] -= split
+    st, second = pll.symbol_scan(p, x[split:].to(dev), st, s0, s1)
+    got = pll.Symbols(torch.cat([first.a_idx, second.a_idx + split]),
+                      *(torch.cat([a, b]) for a, b in zip(first[1:], second[1:])))
+    _same_symbols(got, whole)
+
+
+def test_scan_kernel_budget_and_arguments(dev):
+    """The QPSK timing runs backwards on this stream, so the scan ends at
+    the step budget on both sides; mixed devices and a bad sync raise."""
+    x = torch.from_numpy(k3_streams(300_000, seed=6)["qpsk"])
+    p, s0, s1 = _psk("qpsk")
+    _, got = pll.symbol_scan(p, x.to(dev), pll.initial_state(p, 120, 1, dev), s0, s1)
+    _, want = pll.symbol_scan_plain(p, x, pll.initial_state(p, 120), s0, s1)
+    assert got.count == pll.max_symbols(p, 300_000)
+    _same_symbols(got, want)
+    with pytest.raises(ValueError):
+        pll.symbol_scan(p, x.to(dev), pll.initial_state(p, 120), s0, s1)
+    with pytest.raises(ValueError):
+        pll.symbol_scan(p, x.to(dev), pll.initial_state(p, 120, 1, dev), s0, s1[:-1])
+
+
+@pytest.mark.parametrize("segments", [None, 4])
+def test_funcube_decode_on_the_card_matches_cpu(dev, segments):
+    raw, starts = synth_funcube_bytes(11.0, dev, seed=7)
+    out = {}
+    for where, data in (("cuda", raw), ("cpu", raw.cpu())):
+        before = pll.LAUNCHES
+        dec = FuncubeDecoder(sources.DeviceRawSource(data, FS), FC_OFFSET_HZ,
+                             n_segments=segments)
+        out[where] = (dec.get_syncs(), dec.useful, pll.LAUNCHES - before)
+    assert out["cuda"][2] == 1 and out["cpu"][2] == 0
+    assert out["cuda"][1] == out["cpu"][1] == 1
+    assert len(out["cuda"][0]) == len(out["cpu"][0]) == len(starts) - 1
+    assert np.max(np.abs(np.subtract(out["cuda"][0], out["cpu"][0]))) <= 2
+
+
+def test_funcube_block_loop_on_the_card_matches_cpu(dev):
+    raw, starts = synth_funcube_bytes(11.0, dev, seed=8)
+    out = {}
+    for where, data in (("cuda", raw), ("cpu", raw.cpu())):
+        before = pll.LAUNCHES
+        dec = FuncubeDecoder(sources.DeviceRawSource(data, FS), FC_OFFSET_HZ,
+                             block_size=4_000_000)
+        out[where] = (dec.get_syncs(), dec.useful, pll.LAUNCHES - before)
+    assert out["cuda"][2] == 6 and out["cpu"][2] == 0
+    assert out["cuda"][1] == out["cpu"][1] == 1 and len(out["cuda"][0]) == 1
+    assert np.max(np.abs(np.subtract(out["cuda"][0], out["cpu"][0]))) <= 2
+
+
+def test_meteor_decode_on_the_card_matches_cpu(dev):
+    """The QPSK timing loop steps backwards at times, so the last-ulp
+    differences of the two low-pass filters can move the loops' first
+    frames while they lock; from the second reported sync on, the card and
+    the CPU agree."""
+    raw, starts = synth_meteor_bytes(1.2, dev, seed=9)
+    out = {}
+    for where, data in (("cuda", raw), ("cpu", raw.cpu())):
+        dec = MeteorM2Decoder(sources.DeviceRawSource(data, FS), MM_OFFSET_HZ)
+        out[where] = (dec.get_syncs(), dec.useful)
+    assert out["cuda"][1] == out["cpu"][1] == 1
+    assert len(out["cuda"][0]) == len(out["cpu"][0]) >= len(starts) - 2
+    assert np.max(np.abs(np.subtract(out["cuda"][0][1:], out["cpu"][0][1:]))) <= 2
