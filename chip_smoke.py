@@ -3,17 +3,19 @@
 
     python3 chip_smoke.py
 
-Drives the port's four decode paths, NOAA APT, AFSK1200/APRS, Funcube BPSK
-and Meteor-M2 QPSK, on the card and fails (non-zero exit, no result line)
-on any error. Phases, in order:
+Drives the port's decode paths, NOAA APT, AFSK1200/APRS, Funcube BPSK,
+Meteor-M2 QPSK and FM, the chainable Stream API and the one-pass
+multichannel front end, on the card and fails (non-zero exit, no result
+line) on any error. Phases, in order:
 
 1. check that a CUDA device exists and print its name and power limit;
-2. build the CUDA kernels K1 (`csrc/ddc_fm_u8.cu`), K2
-   (`csrc/lookahead_walk.cu`) and K3 (`csrc/symbol_scan.cu`) from the
-   checkout, all compilers at once;
+2. build the CUDA kernels K1 (`csrc/ddc_fm_u8.cu`), K4
+   (`csrc/ddc_fm_c64.cu`), K2 (`csrc/lookahead_walk.cu`) and K3
+   (`csrc/symbol_scan.cu`) from the checkout, all compilers at once;
 3. hold K1 against its plain PyTorch version and an fp64 oracle at the
    NOAA path's block shape (J=34, K=151, one 20,000,000-sample block plus
-   its history) and time both with CUDA events;
+   its history) and time both, and the cuDNN convolution of the same
+   windows, with CUDA events;
 4. synthesize a 10-minute NOAA pass (1,200 APT lines, 2.46 GB of uint8 IQ)
    on the card and decode it from a DeviceRawSource with NoaaDecoder, cold
    and then warm, checking usefulness, sync spacing, image size and
@@ -47,7 +49,27 @@ on any error. Phases, in order:
     planted frames, K3 ran), then with 32 segments;
 13. run the command-line interface on 30-second IQ.wav files:
     `-d funcube --freqshift` and `-d meteor --segments=8`;
-14. print the kernel table as one JSON line, then the result line
+14. hold K4 against its plain version and the fp64 oracle on a
+    20,000,000-sample complex64 block at J=34 and J=68 (timed with the
+    cuDNN convolution of the same windows), at a ragged out_len, with
+    three channels (each equal to its one-channel launch bit for bit) and
+    at J=409, with K1 at J=409 beside it;
+15. synthesize a 10-minute complex64 FM capture (1,228,800,000 samples,
+    9.83 GB in host memory) and decode it with FmDecoder from an
+    ArraySource, cold and then warm: the audio must correlate with the
+    modulating audio at >= 0.99, and K4 must run once a block (62);
+16. tutorial 3's chain through Stream.run and Stream.run_fused and
+    tutorial 2's chain on a 2-minute complex64 FM capture, a checkpoint
+    after block 3 resumed in a fresh Pipeline (bit for bit), and a
+    three-channel MultiDdcFm on the complex blocks (one K4 launch a block)
+    against the one-channel front ends;
+17. synthesize a 10-minute uint8 capture holding NOAA-15, -18 and -19 and
+    run MultiDdcFm over it from a DeviceRawSource, cold and then warm: one
+    K1 launch a block for the three channels, each equal bit for bit to
+    the one-channel front end at its offset, timed against three
+    one-channel runs;
+18. print the kernel table as one JSON line (time, plain time, bound and
+    library-call time, launches on each path), then the result line
     {"ok": true, "device": {...}} last.
 
 Imports nothing of JAX.
@@ -301,10 +323,16 @@ def k1_compare(ddc, fe, dev, raw: torch.Tensor, label: str) -> dict:
     ms_k = cuda_ms(lambda: ddc.ddc_fm_u8(seg, taps_rev, rot, c_prev, J, out_len), 20)
     ms_p = cuda_ms(lambda: ddc.ddc_fm_u8_plain(seg, taps_rev, rot, c_prev, J,
                                                out_len), 5)
-    print(f"{label}: K1 at J {J} {ms_k:.4f} ms, plain {ms_p:.4f} ms per "
+    b = seg[: 2 * ((out_len - 1) * J + K)].float() - 127.5
+    ms_l = conv_library_ms(torch.complex(b[0::2], b[1::2]), taps_rev, J, 20)
+    del b
+    bnd = ddc_bound(2 * ((out_len - 1) * J + K), 1, out_len, K)
+    print(f"{label}: K1 at J {J} {ms_k:.4f} ms, plain {ms_p:.4f} ms, cuDNN conv1d "
+          f"{ms_l:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) per "
           f"{blk}-sample block ({blk / ms_k / 1e6:.2f} Gsamp/s kernel, "
           f"{blk / ms_p / 1e6:.2f} Gsamp/s plain) on {card_line()}", flush=True)
-    return {"max_abs_err": err_max, "ms": ms_k, "plain_ms": ms_p}
+    return {"max_abs_err": err_max, "ms": ms_k, "plain_ms": ms_p, "library_ms": ms_l,
+            **bnd}
 
 
 def phase4_decode(ddc, fe, dev) -> int:
@@ -455,14 +483,18 @@ def k2_compare(peaks, y: torch.Tensor, lookahead: int, delta: float,
         mismatched = int((diff > 0).any(dim=0).sum())
     ms_k = cuda_ms(lambda: peaks.lookahead_walk(*args), 5)
     ms_p = cuda_ms(lambda: peaks.lookahead_walk_plain(*args), plain_reps)
+    # y, fmax, fmin read once (float32); an event is 8 + 8 + 4 + 1 bytes;
+    # a step is ~6 compares and selects
+    bnd = bound(12 * limit + 21 * ev_k[0].shape[0] + 8, 6 * limit)
     print(f"{label}: K2 over {limit} samples, lookahead {lookahead}, delta "
           f"{delta}: {ev_k[0].shape[0]} events, {mismatched} mismatched vs "
           f"plain (max field difference {err}); K2 {ms_k:.4f} ms "
-          f"({ms_k * 1e6 / limit:.2f} ns per sample), plain {ms_p:.4f} ms "
-          f"on {card_line()}", flush=True)
+          f"({ms_k * 1e6 / limit:.2f} ns per sample), plain {ms_p:.4f} ms, bound "
+          f"{bnd['bound_ms']:.5f} ms ({bnd['bound_by']}) on {card_line()}", flush=True)
     check(err == 0.0 and ev_k[0].shape[0] > 0,
           f"K2 events equal the plain version's ({mismatched} mismatched)")
-    return {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p}
+    return {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p, "library_ms": None,
+            **bnd}
 
 
 def stress_edges(n: int, seed: int, device) -> torch.Tensor:
@@ -762,14 +794,18 @@ def k3_compare(pll, kind: str, x: np.ndarray, dev, segments: int = 1) -> dict:
     err = float((got.phase_out.cpu() - want.phase_out).abs().max()) \
         if got.count == want.count else float("inf")
     ms = cuda_ms(lambda: run(xd), 3)
+    # per symbol: two complex64 samples read (B and A), 14 bytes of outputs,
+    # ~100 float32 operations of the step
+    bnd = bound(30 * got.count, 100 * got.count)
     print(f"phase 10 ({kind}, {segments} segment(s)): K3 over {len(x)} samples, "
           f"{got.count} symbols ({int(got.minsync.sum())} minsync): a_idx, "
           f"minsync, chosen equal to the plain version: {same}; largest phase "
           f"difference {err:.3e} rad; K3 {ms:.4f} ms ({ms * 1e6 / got.count:.1f} ns "
-          f"a symbol), plain {plain_ms:.1f} ms on {card_line()}", flush=True)
+          f"a symbol), plain {plain_ms:.1f} ms, bound {bnd['bound_ms']:.5f} ms "
+          f"({bnd['bound_by']}) on {card_line()}", flush=True)
     check(same and got.count > 0, f"K3 {kind} equals its plain version")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "symbols": got.count}
+            "symbols": got.count, **bnd}
 
 
 def psk_decode(cls, raw: torch.Tensor, offset: float, dev, label: str, **kw):
@@ -883,6 +919,503 @@ def phase13_psk_cli(dev) -> None:
           f"{ch['decodeSeconds']}", flush=True)
 
 
+# ------------------------------------------------- FM, stream and bank slice
+FM_OFFSET_HZ = 30_000           # channel offset of the FM captures
+FM_DEV_HZ = 5_000               # peak deviation
+FM_TONES = ((400, 0.5, 0.0), (1100, 0.3, 1.0), (2300, 0.2, 2.0))  # Hz, amp, phase
+FM_AMP = 90.0
+FM_NOISE = 2.0                  # complex noise per component
+# the three satellites of one recording centred at 137.5 MHz
+NOAA_BANK_HZ = (120_000, 412_500, -400_000)     # NOAA-15, -18, -19
+# H100 SXM peaks for the bound: HBM3 bandwidth and dense fp32 rate
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_S = 67e12
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the fp32 operations over the fp32 peak."""
+    t_b, t_o = n_bytes / PEAK_BYTES_S * 1e3, n_ops / PEAK_FP32_S * 1e3
+    return {"bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+def ddc_bound(n_in_bytes: int, channels: int, out_len: int, taps: int) -> dict:
+    """Bound of one K1 or K4 call: its input read once, the audio and c_last
+    written once; 8 operations a complex tap and ~12 for the discriminator
+    (the atan2 counted as one) per output and channel."""
+    return bound(n_in_bytes + channels * (4 * out_len + 8),
+                 channels * out_len * (8 * taps + 12))
+
+
+def fm_message(t: torch.Tensor) -> torch.Tensor:
+    """The modulating audio m(t) of the FM captures, peak <= 1, at times t
+    (seconds, float64)."""
+    return sum(a * torch.sin(2 * np.pi * f * t + p) for f, a, p in FM_TONES)
+
+
+def synth_fm(n: int, device, seed: int = 0, chunk: int = 1 << 25,
+             host: bool = True, offsets=(FM_OFFSET_HZ,)):
+    """An FM capture of n complex64 samples: for each carrier of `offsets`,
+    FM_AMP / len(offsets) e^{j phi} with phi the carrier plus 2 pi FM_DEV_HZ
+    times the integral of `fm_message`, both in closed form from exact
+    integer phases (f n mod fs), plus complex noise of FM_NOISE per
+    component. Made on `device` a chunk at a time; returned as a host numpy
+    array (`host`) or a tensor on `device`."""
+    out = np.empty(n, np.complex64) if host else \
+        torch.empty(n, dtype=torch.complex64, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    for s in range(0, n, chunk):
+        e = min(n, s + chunk)
+        i = torch.arange(s, e, dtype=torch.int64, device=device)
+        mod = torch.zeros(e - s, dtype=torch.float64, device=device)
+        for f, a, p in FM_TONES:
+            arg = (2 * np.pi / FS) * torch.remainder(f * i, FS).double() + p
+            mod += FM_DEV_HZ * a / f * (np.cos(p) - torch.cos(arg))
+        x = torch.complex(*(torch.randn(2, e - s, dtype=torch.float64, device=device,
+                                        generator=gen) * FM_NOISE))
+        for f in offsets:
+            ph = (2 * np.pi / FS) * torch.remainder(f * i, FS).double() + mod
+            x += torch.polar(torch.full_like(ph, FM_AMP / len(offsets)), ph)
+        x = x.to(torch.complex64)
+        if host:
+            out[s:e] = x.cpu().numpy()
+        else:
+            out[s:e] = x
+    return out
+
+
+def fm_audio_times(n: int, stride: int, decim_rate: float, audio_rate: int,
+                   block: int, ntaps: int = 151) -> np.ndarray:
+    """The capture time (s) each sample of `FmDecoder.get_audio()` (strict)
+    stands for on an n-sample capture: block by block, the front end's
+    output m measures the phase step over the J samples before m*J, behind
+    the FIR's (K-1)/2 delay; the per-block Fourier resample puts output i at
+    input position i * N / M."""
+    from directdemod_tpu_torch.ops import resample as rs
+    from directdemod_tpu_torch.stream.plan import plan_blocks
+    ts = []
+    for s, e in plan_blocks(n, block):
+        cnt = rs.decim_count(e - s, rs.decim_phase(s, stride), stride)
+        m0 = -(-s // stride)
+        if s == 0:              # block 0 drops its first output
+            m0, cnt = m0 + 1, cnt - 1
+        num = int(audio_rate * cnt / decim_rate)
+        m = m0 + np.arange(num) * (cnt / num)
+        ts.append((m * stride - stride / 2 - (ntaps - 1) / 2) / FS)
+    return np.concatenate(ts)
+
+
+def fm_correlation(audio, times: np.ndarray, device) -> tuple[float, float]:
+    """Correlation of decoded audio with `fm_message` at `times`, at the
+    best of a few common lags (+-40 us, to absorb the half-sample
+    conventions of the resample); returns (correlation, lag in us)."""
+    a = torch.as_tensor(np.asarray(audio), dtype=torch.float64, device=device)
+    t = torch.as_tensor(times, dtype=torch.float64, device=device)
+    check(a.shape == t.shape and bool(torch.isfinite(a).all()),
+          f"audio {tuple(a.shape)} finite, {tuple(t.shape)} times")
+
+    def corr(x, y):
+        x, y = x - x.mean(), y - y.mean()
+        return float((x * y).sum() / torch.sqrt((x * x).sum() * (y * y).sum()))
+    mid = slice(len(a) // 2, len(a) // 2 + min(len(a) // 2, 1 << 20))
+    lags = np.linspace(-40e-6, 40e-6, 81)
+    best = max(lags, key=lambda d: corr(a[mid], fm_message(t[mid] + d)))
+    return corr(a, fm_message(t + best)), float(best * 1e6)
+
+
+def conv_library_ms(xs: torch.Tensor, taps_rev: torch.Tensor, J: int,
+                    reps: int) -> float:
+    """The library call of K1 and K4, timed: one cuDNN `F.conv1d` computing
+    the same windows (TF32 is off in the port) from the complex64 samples
+    `xs` as (1, 2, N) float32, checked against `ddc.conv_windows` first."""
+    import torch.nn.functional as F
+    from directdemod_tpu_torch.ops.ddc import conv_windows
+    K = taps_rev.shape[-1]
+    xr = torch.view_as_real(xs).T.reshape(1, 2, -1).contiguous()
+    t = taps_rev.reshape(-1, K)
+    weight = torch.stack([torch.stack([t.real, -t.imag], 1),
+                          torch.stack([t.imag, t.real], 1)], 1).reshape(-1, 2, K)
+    weight = weight.contiguous()
+    y = F.conv1d(xr, weight, stride=J).reshape(t.shape[0], 2, -1)
+    check(torch.allclose(y[:, 0, :64], conv_windows(xs, taps_rev, J, 64).real,
+                         rtol=1e-4, atol=1e-2), "the library call computes the windows")
+    del y
+    return cuda_ms(lambda: F.conv1d(xr, weight, stride=J), reps)
+
+
+def ddc_compare(ddc, kind: str, x: torch.Tensor, samples, fe, c_prev,
+                out_len: int, label: str, reps: int = 20, plain_reps: int = 5,
+                timed: bool = True, head: int = 0) -> dict:
+    """K1 (kind "u8", x raw bytes) or K4 ("c64", x complex64 samples)
+    against its plain version (fp32 bars) and the fp64 oracle on the first,
+    a middle and the last 4,096 outputs of every channel (`samples(lo, hi)`
+    gives samples [lo, hi) as complex128 on the card), c_last against the
+    oracle's c[out_len - 1]; then K, plain and the cuDNN `F.conv1d` of the
+    same windows (the library call) timed with CUDA events. The kernel gets
+    x's first `head` samples as its `head=`, as a stream hands it its
+    history; the plain version gets x whole."""
+    fn, plain = ((ddc.ddc_fm_u8, ddc.ddc_fm_u8_plain) if kind == "u8"
+                 else (ddc.ddc_fm_c64, ddc.ddc_fm_c64_plain))
+    J, K = fe.stride, fe.ntaps
+    _, taps_rev, rot, _ = fe.consts(x.device)
+    cut = head * (2 if kind == "u8" else 1)
+    xk, hk = (x[cut:], x[:cut]) if head else (x, None)
+
+    def kernel():
+        return fn(xk, taps_rev, rot, c_prev, J, out_len, head=hk)
+    a_k, c_k = kernel()
+    a_p, _ = plain(x, taps_rev, rot, c_prev, J, out_len)
+    torch.cuda.synchronize()
+    a_k, a_p = a_k.reshape(-1, out_len), a_p.reshape(-1, out_len)
+    d = wrapped(a_k - a_p)
+    err_max = float(d.max())
+    err_p999 = float(torch.quantile(d.reshape(-1)[: 1 << 24].float(), 0.999))
+    del d, a_p
+    w64 = torch.as_tensor(np.ascontiguousarray(fe.taps_mod[..., ::-1]),
+                          dtype=torch.complex128, device=x.device).reshape(-1, K)
+    rot64 = torch.as_tensor(np.asarray(fe.rot).reshape(-1), dtype=torch.complex128,
+                            device=x.device)
+    oracle_err, c_last_rel = 0.0, 0.0
+    for m0 in sorted({0, out_len // 2, max(out_len - 4096, 0)}):
+        m1 = min(out_len, m0 + 4096)
+        lo = max(m0 - 1, 0)
+        win = samples(lo * J, (m1 - 1) * J + K).unfold(0, K, J)   # (m1 - lo, K)
+        for ch in range(w64.shape[0]):
+            c = win @ w64[ch]
+            prev = torch.cat([c_prev[ch:ch + 1].to(torch.complex128), c[:-1]]) \
+                if m0 == 0 else c[:-1]
+            cur = c if m0 == 0 else c[1:]
+            ref = torch.angle(cur * prev.conj() * rot64[ch])
+            oracle_err = max(oracle_err, float(wrapped(a_k[ch, m0:m1] - ref).max()))
+            if m1 == out_len:
+                c_last_rel = max(c_last_rel, abs(complex((c_k[ch] - c[-1]).cpu()))
+                                 / max(float(c.abs().max()), 1e-30))
+    chans = a_k.shape[0]
+    n_in = x.numel() * x.element_size()
+    print(f"{label}: {'K1' if kind == 'u8' else 'K4'} J {J}, {chans} channel(s), "
+          f"out_len {out_len}: vs plain max {err_max:.3e} p99.9 {err_p999:.3e}, vs "
+          f"fp64 oracle max {oracle_err:.3e}, c_last vs c[out_len-1] "
+          f"{c_last_rel:.3e} of max |c|", flush=True)
+    check(err_p999 < PLAIN_P999_TOL and err_max < PLAIN_MAX_TOL,
+          f"{label} vs plain p99.9 {err_p999} max {err_max}")
+    check(oracle_err < (2e-4 if kind == "c64" else ORACLE_TOL),
+          f"{label} vs fp64 oracle {oracle_err}")
+    check(c_last_rel < 5e-6, f"{label} c_last {c_last_rel}")
+    out = {"max_abs_err": err_max, "oracle_err": oracle_err,
+           **ddc_bound(n_in, chans, out_len, K)}
+    if not timed:
+        return out
+    del a_k
+    xs = (samples(0, (out_len - 1) * J + K).to(torch.complex64) if kind == "u8"
+          else x[: (out_len - 1) * J + K])
+    out["library_ms"] = conv_library_ms(xs, taps_rev, J, reps)
+    del xs
+    out["ms"] = cuda_ms(kernel, reps)
+    out["plain_ms"] = cuda_ms(lambda: plain(x, taps_rev, rot, c_prev, J, out_len),
+                              plain_reps)
+    print(f"{label}: {'K1' if kind == 'u8' else 'K4'} {out['ms']:.4f} ms, plain "
+          f"{out['plain_ms']:.4f} ms, cuDNN conv1d {out['library_ms']:.4f} ms, bound "
+          f"{out['bound_ms']:.4f} ms ({out['bound_by']}, {n_in / 1e6:.1f} MB in) on "
+          f"{card_line()}", flush=True)
+    return out
+
+
+def phase14_k4(ddc, dev, blk: int = 20_000_000) -> dict:
+    """K4 against its plain version and the fp64 oracle on a 20,000,000-sample
+    complex64 block (as DdcFmStream hands a later block over: the history
+    samples as `head=`, then the block) at J = 34 and J = 68, timed; at a ragged
+    out_len; with three channels; and at J = 409 with K1 beside it. Returns
+    the kernel-table numbers of K4 (J = 34) and the J = 409 results."""
+    from directdemod_tpu_torch.models.frontend import DdcFm
+    from directdemod_tpu_torch.models.multichannel import MultiDdcFm
+    from directdemod_tpu_torch.ops import design, resample as rs
+    x = synth_fm(2 * blk, dev, seed=4, host=False)
+    taps = design.blackmanharris(151)
+    cp = torch.tensor([1.0 + 0.5j] * 3, dtype=torch.complex64, device=dev)
+    res = {}
+    for bw in (60_000, 30_000):
+        fe = DdcFm(FS, FM_OFFSET_HZ, taps, bw)
+        J, K = fe.stride, fe.ntaps
+        off = rs.decim_phase(blk, J)
+        out_len = rs.decim_count(blk, off, J)
+        seg = x[blk - (K - 1) + off: 2 * blk].contiguous()
+        res[J] = ddc_compare(ddc, "c64", seg, lambda a, b: seg[a:b].to(torch.complex128),
+                             fe, cp[:1], out_len, f"phase 14 (J {J})", head=K - 1 - off)
+    fe = DdcFm(FS, FM_OFFSET_HZ, taps, 60_000)
+    ragged = min(100_003, (blk - 151) // 34 + 1 - 17)
+    seg = x[: (ragged - 1) * 34 + 151]
+    ddc_compare(ddc, "c64", seg, lambda a, b: seg[a:b].to(torch.complex128), fe,
+                cp[:1], ragged, "phase 14 (ragged out_len)", timed=False)
+    bank = MultiDdcFm(FS, NOAA_BANK_HZ, taps, 60_000)
+    seg = synth_fm(blk + 150, dev, seed=7, host=False, offsets=NOAA_BANK_HZ)
+    out_len = (seg.shape[0] - 151) // 34 + 1
+    res["bank"] = ddc_compare(ddc, "c64", seg, lambda a, b: seg[a:b].to(torch.complex128),
+                              bank, cp, out_len, "phase 14 (3 channels)", reps=10)
+    _, taps_rev, rot, _ = bank.consts(dev)
+    audio, c_last = ddc.ddc_fm_c64(seg, taps_rev, rot, cp, 34, out_len)
+    for ch in range(3):
+        a1, c1 = ddc.ddc_fm_c64(seg, taps_rev[ch].contiguous(), rot[ch:ch + 1].contiguous(),
+                                cp[ch:ch + 1].contiguous(), 34, out_len)
+        check(torch.equal(audio[ch], a1) and torch.equal(c_last[ch:ch + 1], c1),
+              f"K4 channel {ch} equals its one-channel launch bit for bit")
+    del audio, a1
+    one = cuda_ms(lambda: [ddc.ddc_fm_c64(seg, taps_rev[ch].contiguous(), rot[ch:ch + 1],
+                                          cp[ch:ch + 1], 34, out_len) for ch in range(3)], 10)
+    print(f"phase 14: 3 channels in one K4 launch {res['bank']['ms']:.4f} ms, three "
+          f"one-channel launches {one:.4f} ms; channels equal bit for bit", flush=True)
+    # J = 409 (a 5 kHz -b): T drops to 64 to fit the shared memory
+    fe = DdcFm(FS, FM_OFFSET_HZ, taps, 5_000)
+    J, K = fe.stride, fe.ntaps
+    check(J == 409, f"J {J} at 5 kHz")
+    out_len = (blk - K) // J + 1
+    seg = x[:blk]
+    res["j409_k4"] = ddc_compare(ddc, "c64", seg, lambda a, b: seg[a:b].to(torch.complex128),
+                                 fe, cp[:1], out_len, "phase 14 (J 409)", reps=5,
+                                 plain_reps=2)
+    raw = torch.view_as_real(seg).reshape(-1).add(127.5).round().clamp(0, 255) \
+        .to(torch.uint8)
+    del x
+    res["j409_k1"] = ddc_compare(ddc, "u8", raw, u8_samples(raw), fe, cp[:1], out_len,
+                                 "phase 14 (K1 at J 409)", reps=5, plain_reps=2)
+    return res
+
+
+def u8_samples(raw: torch.Tensor):
+    """samples(lo, hi) of `ddc_compare` for raw interleaved uint8 IQ."""
+    def samples(a, b):
+        r = raw[2 * a: 2 * b].double() - 127.5
+        return torch.complex(r[0::2], r[1::2])
+    return samples
+
+
+def phase15_fm(ddc, dev, seconds: float = 600.0) -> int:
+    """A 10-minute complex64 FM capture (1,228,800,000 samples, 9.83 GB)
+    synthesized on the card and held in host memory as an ArraySource,
+    decoded with FmDecoder(offset 30 kHz, bw 30 kHz, audio 15 kHz), cold and
+    then warm: the audio must correlate with the modulating audio at >= 0.99
+    and K4 must run once a block. Returns the warm run's K4 launch count."""
+    from directdemod_tpu_torch import constants
+    from directdemod_tpu_torch.io.sources import ArraySource
+    from directdemod_tpu_torch.models.fm import FmDecoder
+    from directdemod_tpu_torch.stream.plan import plan_blocks
+    n = int(seconds * FS)
+    t0 = time.perf_counter()
+    x = synth_fm(n, dev, seed=5)
+    print(f"phase 15: synthesized {n} complex64 samples ({x.nbytes / 1e9:.2f} GB, "
+          f"host) in {time.perf_counter() - t0:.1f} s", flush=True)
+    src = ArraySource(x, FS)
+    blocks = len(plan_blocks(n, constants.PROC_CHUNKSIZE))
+    for run in ("cold", "warm"):
+        dec = FmDecoder(src, FM_OFFSET_HZ, bw=30_000, audio_freq=15_000, device=dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ddc.LAUNCHES_C64 = 0
+        t0 = time.perf_counter()
+        audio, rate = dec.get_audio()
+        wall = time.perf_counter() - t0
+        launches = ddc.LAUNCHES_C64
+        stages = {k: round(v, 4) for k, v in dec.stage_seconds.items()}
+        times = fm_audio_times(n, 68, int(FS / 68), rate, constants.PROC_CHUNKSIZE)
+        corr, lag = fm_correlation(audio, times, dev)
+        print(f"phase 15 ({run}): FM decode of a {n / FS:.1f} s capture in {wall:.3f} "
+              f"s wall ({n / FS / wall:.1f}x real time), stages (CUDA events) "
+              f"{json.dumps(stages)}, peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
+              f" GiB, {len(audio)} samples at {rate} Hz, correlation with the "
+              f"modulating audio {corr:.6f} (lag {lag:.1f} us), K4 launches "
+              f"{launches} of {blocks} blocks on {card_line()}", flush=True)
+        check(rate == 15_000 and corr >= 0.99, f"FM audio correlation {corr}")
+        check(launches == blocks, f"K4 launches {launches}, blocks {blocks}")
+    return launches
+
+
+def phase16_stream(ddc, dev, seconds: float = 120.0,
+                   run_block: int = 1_000_000) -> tuple[int, int]:
+    """The tutorial chains on a 2-minute complex64 FM capture (245,760,000
+    samples, host): tutorial 3's chain (shift, FIR, bw_limit, fm_demod)
+    through `run(block_size=1_000_000)` and `run_fused()`, tutorial 2's chain
+    (a 400-4400 Hz Butterworth band-pass after the discriminator), a
+    checkpoint after block 3 resumed in a fresh Pipeline (bit for bit), and
+    a three-channel MultiDdcFm on the complex blocks against the
+    one-channel front ends. Returns the K4 launches of run_fused and of the
+    bank."""
+    from directdemod_tpu_torch import constants as K
+    from directdemod_tpu_torch.io.sources import ArraySource
+    from directdemod_tpu_torch.models.frontend import DdcFm
+    from directdemod_tpu_torch.models.multichannel import MultiDdcFm
+    from directdemod_tpu_torch.ops import filters
+    from directdemod_tpu_torch.stream.api import Stream
+    n = int(seconds * FS)
+    x = synth_fm(n, dev, seed=6)
+    src = ArraySource(x, FS)
+    blocks = -(-n // K.PROC_CHUNKSIZE)
+
+    def t3():
+        return (Stream(src, device=dev).shift(FM_OFFSET_HZ)
+                .filter(filters.blackman_harris(151)).bw_limit(60_000).fm_demod())
+    t0 = time.perf_counter()
+    small, rate = t3().run(block_size=run_block)
+    t_run = time.perf_counter() - t0
+    ddc.LAUNCHES_C64 = 0
+    t0 = time.perf_counter()
+    fused, rate_f = t3().run_fused()
+    t_fused = time.perf_counter() - t0
+    fused_launches = ddc.LAUNCHES_C64
+    d = np.abs(np.angle(np.exp(1j * (small.astype(np.float64) - fused))))
+    print(f"phase 16: tutorial 3 chain, run (1 M blocks) {t_run:.3f} s, run_fused "
+          f"{t_fused:.3f} s ({fused_launches} K4 launches), {len(fused)} samples at "
+          f"{rate_f} Hz; run vs run_fused max {d.max():.3e} p99.9 "
+          f"{np.percentile(d, 99.9):.3e} rad", flush=True)
+    check(rate == rate_f == 60_235 and small.shape == fused.shape
+          and np.isfinite(fused).all(), "tutorial 3 outputs")
+    check(np.percentile(d, 99.9) < PLAIN_P999_TOL and d.max() < PLAIN_MAX_TOL,
+          "run and run_fused agree within the fp32 bars")
+    check(fused_launches == blocks, f"run_fused launched K4 {fused_launches} times")
+    del small, d
+
+    def t2():
+        return t3().filter(filters.butter(60_235, 400, 4400, kind=K.FLT_BP))
+    t0 = time.perf_counter()
+    full, rate2 = t2().run()
+    print(f"phase 16: tutorial 2 chain (band-pass after the discriminator) "
+          f"{time.perf_counter() - t0:.3f} s, {len(full)} samples at {rate2} Hz",
+          flush=True)
+    check(rate2 == 60_235 and full.shape == fused.shape and np.isfinite(full).all(),
+          "tutorial 2 outputs")
+    blk = K.PROC_CHUNKSIZE
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "t2.ckpt")
+        first, _ = t2().build().process(ArraySource(x[: 4 * blk], FS),
+                                        checkpoint_path=ck)
+        rest, _ = t2().build().process(src, checkpoint_path=ck, resume=True)
+    resumed = np.concatenate([first, rest])
+    print(f"phase 16: checkpoint after block 3 (position {4 * blk}), resumed in a "
+          f"fresh Pipeline: equal to the full run bit for bit: "
+          f"{np.array_equal(resumed, full)}", flush=True)
+    check(np.array_equal(resumed, full), "the resumed pipeline equals the full run")
+    del full, first, rest, resumed
+
+    freqs = (FM_OFFSET_HZ, -200_000, 350_000)
+    taps = filters.blackman_harris(151)
+    ddc.LAUNCHES_C64 = 0
+    t0 = time.perf_counter()
+    bank, _ = MultiDdcFm(FS, freqs, taps, 60_000).process(src, device=dev)
+    t_bank = time.perf_counter() - t0
+    bank_launches = ddc.LAUNCHES_C64
+    t0 = time.perf_counter()
+    ones = [DdcFm(FS, f, taps, 60_000).process(src, device=dev)[0] for f in freqs]
+    t_ones = time.perf_counter() - t0
+    # block 0's first outputs read each channel's own virtual history: the
+    # bank takes them from a small conv, the one-channel stream from K4
+    h = -(-150 // 34)
+    same = all(np.array_equal(bank[ch, h:], ones[ch][h:]) for ch in range(3))
+    head = max(float(np.abs(np.angle(np.exp(1j * (bank[ch, :h].astype(np.float64)
+                                                   - ones[ch][:h])))).max())
+               for ch in range(3))
+    print(f"phase 16: complex MultiDdcFm, 3 channels in {t_bank:.3f} s ({bank_launches} "
+          f"K4 launches), three one-channel runs {t_ones:.3f} s; channels equal the "
+          f"one-channel front ends bit for bit after block 0's first {h} outputs: "
+          f"{same}, those {head:.3e} rad apart", flush=True)
+    check(same and head < 2e-4, "complex bank channels equal the one-channel streams")
+    check(bank_launches == blocks, f"bank launched K4 {bank_launches} times")
+    return fused_launches, bank_launches
+
+
+def synth_noaa_bank_bytes(seconds: float, device, seed: int = 7,
+                          chunk: int = 1 << 25) -> torch.Tensor:
+    """A recording centred at 137.5 MHz holding three APT signals (NOAA-15,
+    -18 and -19 at NOAA_BANK_HZ, the lines of `synth_pass_bytes`, a third
+    of its amplitude each), quantized to uint8 IQ on `device`."""
+    n_lines = int(seconds * 2)
+    lines = np.stack([apt_line_words(np.linspace(30, 220, 1000) + 10 * (i % 3),
+                                     np.linspace(220, 30, 1000))
+                      for i in range(n_lines)])
+    words = torch.as_tensor(lines.reshape(-1), dtype=torch.float64, device=device)
+    n = int(seconds * FS)
+    out = torch.empty(2 * n, dtype=torch.uint8, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    phase0 = torch.zeros(len(NOAA_BANK_HZ), dtype=torch.float64, device=device)
+    for s in range(0, n, chunk):
+        e = min(n, s + chunk)
+        t = torch.arange(s, e, dtype=torch.float64, device=device) / FS
+        widx = torch.clamp((t * WORD_RATE).long(), max=words.shape[0] - 1)
+        base = (0.05 + 0.9 * words[widx] / 255.0) * torch.cos(2 * np.pi * 2400.0 * t)
+        sig = torch.zeros(e - s, dtype=torch.complex128, device=device)
+        for i, f in enumerate(NOAA_BANK_HZ):
+            dphi = 2 * np.pi * (f / FS) + 2 * np.pi * DEV_HZ * base / FS
+            ph = phase0[i] + torch.cumsum(dphi, 0)
+            phase0[i] = torch.remainder(ph[-1], 2 * np.pi)
+            sig += torch.polar(torch.full_like(ph, 1 / 3), ph)
+        for k, part in enumerate((sig.real, sig.imag)):
+            noisy = part + 0.05 * torch.randn(e - s, dtype=torch.float64,
+                                              device=device, generator=gen)
+            out[2 * s + k: 2 * e: 2] = torch.clamp(
+                torch.round(noisy * 90.0 + 127.5), 0, 255).to(torch.uint8)
+    return out
+
+
+def phase17_bank(ddc, dev, seconds: float = 600.0) -> tuple[int, dict]:
+    """MultiDdcFm over a 10-minute uint8 capture holding NOAA-15, -18 and -19
+    (2.46 GB on the card, a DeviceRawSource). First K1 with the bank's three
+    channels (J = 34) against its plain version and the fp64 oracle on the
+    capture's second 20,000,000-sample block, as the stream hands it over
+    (the history samples as `head=`, then the block), timed. Then the bank's run: one
+    K1 launch a block for the three channels, each equal bit for bit to the
+    one-channel front end at its offset (the kernel's channel loop keeps
+    each output's arithmetic), each carrying the 2,400 Hz APT subcarrier;
+    wall time against three one-channel runs. Returns the bank's K1 launch
+    count and the three-channel K1 comparison."""
+    from directdemod_tpu_torch import constants
+    from directdemod_tpu_torch.io.sources import DeviceRawSource
+    from directdemod_tpu_torch.models.frontend import DdcFm
+    from directdemod_tpu_torch.models.multichannel import MultiDdcFm
+    from directdemod_tpu_torch.ops import design, resample as rs
+    t0 = time.perf_counter()
+    raw = synth_noaa_bank_bytes(seconds, dev)
+    torch.cuda.synchronize()
+    n = raw.shape[0] // 2
+    print(f"phase 17: synthesized {n} samples ({raw.shape[0] / 1e9:.2f} GB) with "
+          f"NOAA-15/18/19 at {NOAA_BANK_HZ} Hz in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    src = DeviceRawSource(raw, FS)
+    taps = design.blackmanharris(151)
+    blocks = -(-n // constants.PROC_CHUNKSIZE)
+    bank = MultiDdcFm(FS, NOAA_BANK_HZ, taps, 60_000)
+    blk, J, K = constants.PROC_CHUNKSIZE, bank.stride, bank.ntaps
+    off = rs.decim_phase(blk, J)
+    seg = raw[2 * (blk - (K - 1) + off): 2 * 2 * blk]
+    cp = torch.tensor([1.0 + 0.5j] * 3, dtype=torch.complex64, device=dev)
+    k1_bank = ddc_compare(ddc, "u8", seg, u8_samples(seg), bank, cp,
+                          rs.decim_count(blk, off, J), "phase 17 (K1, 3 channels)",
+                          reps=10, head=K - 1 - off)
+    del seg
+    for run in ("cold", "warm"):
+        ddc.LAUNCHES = 0
+        t0 = time.perf_counter()
+        bank, rate = MultiDdcFm(FS, NOAA_BANK_HZ, taps, 60_000).process(src, device=dev)
+        t_bank = time.perf_counter() - t0
+        launches = ddc.LAUNCHES
+        t0 = time.perf_counter()
+        ones = [DdcFm(FS, f, taps, 60_000).process(src, device=dev)[0]
+                for f in NOAA_BANK_HZ]
+        t_ones = time.perf_counter() - t0
+        same = all(np.array_equal(bank[ch], ones[ch]) for ch in range(3))
+        peaks = []
+        for ch in range(3):
+            seg = bank[ch, len(bank[ch]) // 2:][: 1 << 20].astype(np.float64)
+            spec = np.abs(np.fft.rfft(seg - seg.mean()))
+            peaks.append(float(np.argmax(spec[1:]) + 1) * rate / len(seg))
+        print(f"phase 17 ({run}): MultiDdcFm, 3 channels of a {n / FS:.1f} s capture "
+              f"in {t_bank:.3f} s wall ({launches} K1 launches for {blocks} blocks), "
+              f"three one-channel runs {t_ones:.3f} s; channels equal the one-channel "
+              f"front ends bit for bit: {same}; strongest audio line per channel "
+              f"{[round(p, 1) for p in peaks]} Hz on {card_line()}", flush=True)
+        check(same and bank.shape[0] == 3, "bank channels equal the one-channel streams")
+        check(all(abs(p - 2400.0) < 20 for p in peaks), f"APT subcarrier {peaks}")
+        check(launches == blocks, f"K1 launches {launches}, blocks {blocks}")
+    return launches, k1_bank
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -895,11 +1428,11 @@ def main() -> int:
     from directdemod_tpu_torch.models.frontend import DdcFm
     from directdemod_tpu_torch.ops import _build, ddc, design, peaks, pll
     t0 = time.perf_counter()
-    _build.build_all(["ddc_fm_u8", "lookahead_walk", "symbol_scan"])
+    _build.build_all(["ddc_fm_u8", "ddc_fm_c64", "lookahead_walk", "symbol_scan"])
     ddc.build()
     peaks.build()
     pll.build()
-    print(f"phase 2: K1, K2 and K3 built and loaded in "
+    print(f"phase 2: K1, K4, K2 and K3 built and loaded in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     fe = DdcFm(FS, OFFSET_HZ, design.blackmanharris(151), 60_000)
@@ -926,14 +1459,41 @@ def main() -> int:
     mm_k3 = phase12_meteor(dev)
     phase13_psk_cli(dev)
 
+    k4 = phase14_k4(ddc, dev)
+    fm_k4 = phase15_fm(ddc, dev)
+    fused_k4, bank_k4 = phase16_stream(ddc, dev)
+    bank_k1, k1_3ch = phase17_bank(ddc, dev)
+
     print(json.dumps({"kernels": [
         {"name": "ddc_fm_u8", "route": "cuda",
          "source": "directdemod_tpu_torch/csrc/ddc_fm_u8.cu",
          "replaces": "directdemod_tpu/ops/pallas_ddc.py:148",
-         "launches": noaa_k1 + afsk_k1,
-         "launches_by_path": {"noaa": noaa_k1, "afsk1200": afsk_k1},
-         **k1, "max_abs_err": max(k1["max_abs_err"], k1_92["max_abs_err"]),
-         "ms_j92": k1_92["ms"], "plain_ms_j92": k1_92["plain_ms"]},
+         "launches": noaa_k1 + afsk_k1 + bank_k1,
+         "launches_by_path": {"noaa": noaa_k1, "afsk1200": afsk_k1,
+                              "multichannel": bank_k1},
+         **k1, "max_abs_err": max(k1["max_abs_err"], k1_92["max_abs_err"],
+                                  k4["j409_k1"]["max_abs_err"], k1_3ch["max_abs_err"]),
+         "ms_j92": k1_92["ms"], "plain_ms_j92": k1_92["plain_ms"],
+         "library_ms_j92": k1_92["library_ms"], "bound_ms_j92": k1_92["bound_ms"],
+         **{f"{f}_3ch": k1_3ch[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                            "oracle_err")},
+         "ms_j409": k4["j409_k1"]["ms"], "plain_ms_j409": k4["j409_k1"]["plain_ms"]},
+        {"name": "ddc_fm_c64", "route": "cuda",
+         "source": "directdemod_tpu_torch/csrc/ddc_fm_c64.cu",
+         "replaces": "directdemod_tpu/ops/pallas_ddc.py:31",
+         "launches": fm_k4 + fused_k4 + bank_k4,
+         "launches_by_path": {"fm": fm_k4, "stream_fused": fused_k4,
+                              "multichannel": bank_k4},
+         **{f: k4[34][f] for f in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                   "bound_by")},
+         "max_abs_err": max(v["max_abs_err"] for key, v in k4.items()
+                            if key != "j409_k1"),
+         "oracle_err": max(v["oracle_err"] for key, v in k4.items()
+                           if key != "j409_k1"),
+         **{f"{f}_j68": k4[68][f] for f in ("ms", "plain_ms", "library_ms", "bound_ms")},
+         **{f"{f}_3ch": k4["bank"][f] for f in ("ms", "plain_ms", "library_ms",
+                                                "bound_ms")},
+         "ms_j409": k4["j409_k4"]["ms"], "plain_ms_j409": k4["j409_k4"]["plain_ms"]},
         {"name": "lookahead_walk", "route": "cuda",
          "source": "directdemod_tpu_torch/csrc/lookahead_walk.cu",
          "replaces": "directdemod_tpu/ops/peaks.py:205",
@@ -948,9 +1508,10 @@ def main() -> int:
          "launches": fc_k3 + mm_k3,
          "launches_by_path": {"funcube": fc_k3, "meteor": mm_k3},
          "max_abs_err": max(v["max_abs_err"] for v in k3.values()),
-         "ms": k3["bpsk_1"]["ms"], "plain_ms": k3["bpsk_1"]["plain_ms"],
+         **{f: k3["bpsk_1"][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None,
          **{f"{key}_{f}": v[f] for key, v in k3.items()
-            for f in ("ms", "plain_ms", "symbols")}}]}))
+            for f in ("ms", "plain_ms", "symbols", "bound_ms")}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,8 +6,10 @@ getopt grammar and its quirks (`-sync` parses as `-s ync`, `-noimage` as
 `-n oimage`, `-ce` as `-c e`, the centre frequency then coming from the file
 name), the same per-channel fence and the same JSON report (`-r`), with
 `decodeSeconds`, `resident` and the `device` the channel ran on. The decode
-runs on the first CUDA device when there is one, else on the CPU. Decoders
-and flags the port does not have yet exit non-zero with "not yet ported".
+runs on the current CUDA device; `main(argv, device="cpu")` runs it on the
+CPU (the JAX CLI has no device flag, so neither has this one), and without a
+CUDA device `main` raises unless it is given one. Decoders and flags the
+port does not have yet exit non-zero with "not yet ported".
 """
 from __future__ import annotations
 
@@ -17,9 +19,8 @@ import logging
 import sys
 from time import gmtime, perf_counter, strftime
 
-import torch
-
 from . import constants
+from .device import resolve
 from .io import sinks, sources
 
 NOT_PORTED_FLAGS = ("--map", "--tle", "--mesh")
@@ -59,12 +60,7 @@ Decoder flags:
 """)
 
 
-def default_device() -> torch.device:
-    return torch.device("cuda", torch.cuda.current_device()) \
-        if torch.cuda.is_available() else torch.device("cpu")
-
-
-def main(argv=None) -> int:
+def main(argv=None, device=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
@@ -121,13 +117,13 @@ def main(argv=None) -> int:
     for lst in (starts, ends, outs, bandwidths):
         lst.extend([None] * (len(freqs) - len(lst)))
 
+    device = resolve(device)
     file_name = args[0]
     try:
         sigsrc = sources.open_source(file_name, given_rate)
     except ValueError as e:
         usage(str(e))
         return 1
-    device = default_device()
 
     report = {
         "inFileName": file_name,

@@ -1,4 +1,5 @@
-"""Tunables and protocol constants of the NOAA APT, AFSK1200 and PSK slices.
+"""Tunables and protocol constants of the NOAA APT, AFSK1200, PSK and FM
+slices, and the filter kinds of the filter facade.
 
 Copy of the matching entries of `directdemod_tpu/constants.py` (the JAX
 package cannot be imported without importing jax). Values must stay
@@ -14,6 +15,12 @@ IQ_SDRSAMPRATE = 2_048_000      # default SDR sample rate in Hz
 PROC_CHUNKSIZE = 20_000_000     # samples per stream block. Block boundaries are
                                 # part of the numeric contract: the strict
                                 # resample is applied per block.
+
+# ---------------------------------------------------------------- filter kinds (ops/filters.butter)
+FLT_LP = 0
+FLT_HP = 1
+FLT_BP = 2
+FLT_BS = 3
 
 # ---------------------------------------------------------------- NOAA APT protocol
 NOAA_FMBW = 60_000              # FM bandwidth target before demod

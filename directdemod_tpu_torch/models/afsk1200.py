@@ -73,7 +73,7 @@ class Afsk1200Decoder(TimedDecoder):
         self.src = sigsrc
         self.offset = float(offset)
         self.bw = int(bw) if bw else K.AFSK_DEFAULT_BW
-        self._init_device(sigsrc, device)
+        self._init_device(device)
         self._frames: list[Ax25Frame] | None = None
         self._useful = 0
 

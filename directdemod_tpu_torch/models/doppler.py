@@ -4,29 +4,30 @@ Port of `directdemod_tpu/models/doppler.py` (ref frequency_shift.py):
 8192-point windows over the raw byte stream (adc offset -127), magnitude
 spectra accumulated in groups of ~1 second, per-group argmax inside the
 channel band, 10%-length rolling-mean smoothing, indexed by relative chunk
-position. The window FFTs run batched with `torch.fft.fft` on the device of
-the bytes (the card for a source held there), a few thousand windows at a
-time so the working set stays small; the grouping, argmax and smoothing are
-host NumPy as in the JAX package. The track is computed once and cached.
+position. The window FFTs run batched with `torch.fft.fft` on the decoder's
+device, a few thousand windows at a time so the working set stays small;
+the grouping, argmax and smoothing are host NumPy as in the JAX package.
+The track is computed once and cached.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..device import resolve
+
 WINDOW = 2048 * 2 * 2
 _WINDOWS_PER_FFT = 4096
 
 
-def _accumulated_rows(raw_bytes, window: int, every: float, device=None):
+def _accumulated_rows(raw_bytes, window: int, every: float,
+                      device: torch.device):
     """Group-accumulated |FFT| rows (ref frequency_shift.py:5-44).
     `raw_bytes` is a host uint8 array or a uint8 tensor; the FFTs run on
-    `device` (default: the tensor's device, else the CPU)."""
+    `device`."""
     n_win = len(raw_bytes) // (2 * window)
     if n_win == 0:
         return np.empty((0, window))
-    if device is None:
-        device = raw_bytes.device if isinstance(raw_bytes, torch.Tensor) else "cpu"
     rows = []
     acc = np.zeros(window)
     count = 0
@@ -67,7 +68,9 @@ def _rolling_mean(track: np.ndarray, w: int) -> np.ndarray:
 def find_shift(raw_bytes, samp_rate, center_freq, channel_freq, bandwidth,
                device=None) -> np.ndarray:
     """Smoothed frequency-offset track in Hz over relative capture time
-    (ref frequency_shift.py:60-126)."""
+    (ref frequency_shift.py:60-126); the FFTs run on `device` (the port's
+    device rule, `device.resolve`)."""
+    device = resolve(device)
     window = WINDOW
     xf = np.fft.fftshift(np.fft.fftfreq(window, 1.0 / samp_rate))
     df = xf[1] - xf[0]

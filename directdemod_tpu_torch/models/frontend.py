@@ -9,11 +9,23 @@ one strided convolution with NCO-modulated taps (host fp64),
 and the discriminator cancels the residual phasor up to one constant
 rotation, angle(c[m] conj(c[m-1]) e^{-j w J}).
 
-Block 0 of a stream runs `ops.fir.fir_decimate` (a complex `F.conv1d`): its
-history is the virtual all-ones NCO stream (`hist0`), which no byte string
-can express. Every later raw-byte block runs K1 (`ops.ddc.ddc_fm_u8`), the
-CUDA kernel on a card and its plain version on the CPU. Complex blocks (a
-source without raw bytes) run `fir_decimate` throughout.
+`DdcFmStream` runs a front end block by block. With the FM discriminator
+and complex64 samples (the default) every block goes through a kernel of
+`ops.ddc`: raw uint8 bytes through K1 (`ddc_fm_u8`) over [last K-1 samples'
+bytes | block], complex samples through K4 (`ddc_fm_c64`) over [last K-1
+samples | block], the CUDA kernels on a card and their plain versions on the
+CPU. The kernels read the history and the block through two pointers, so no
+block is copied. Block 0's history is the virtual all-ones NCO stream
+(`hist0`, one per channel). For one channel on complex samples it is a
+sample history like any other, and K4 runs over [hist0 | block]. No byte
+string, and no history shared by several channels, can express it: there
+the few outputs whose windows reach into it are one small `F.conv1d` a
+channel, and the rest of the block goes through the kernel. A stream without the
+discriminator (`fm=False`, the complex decimated stream) or in complex128
+runs `ops.fir.fir_decimate`, as the JAX package runs all of them through
+XLA: the kernels are float32 only. The same stream runs a bank of channels
+(`models.multichannel.MultiDdcFm`): one kernel launch a block for all of
+them.
 """
 from __future__ import annotations
 
@@ -21,148 +33,218 @@ import numpy as np
 import torch
 
 from .. import constants
+from ..device import resolve
 from ..io.feeder import BlockFeeder
 from ..ops import ddc, fir, resample as rs, unpack
 
+_COMPLEX = (torch.complex64, torch.complex128)
+
 
 class DdcFm:
-    """Fused shift + filter + decimate + FM front end. `freq` is the channel
-    offset in Hz, `taps` the FIR window, `bw_target` the rate the integer
-    stride aims at (the reference's first bwLim)."""
+    """Fused shift + filter + decimate (+ FM) front end. `freq` is the
+    channel offset in Hz, `taps` the FIR window, `bw_target` the rate the
+    integer stride aims at (the reference's first bwLim), `fm` whether the
+    discriminator is fused in (else the complex decimated stream comes
+    out)."""
 
-    def __init__(self, fs: int, freq: float, taps, bw_target: int):
+    channels = None          # one channel: 1-D outputs
+
+    def __init__(self, fs: int, freq: float, taps, bw_target: int,
+                 fm: bool = True):
         stride, out_rate = rs.decim_params(fs, bw_target)
         k = len(taps)
         w = 2.0 * np.pi * float(freq) / float(fs)
         self._set(np.asarray(taps, dtype=np.float64) * np.exp(1j * w * np.arange(k)),
                   np.exp(-1j * w * stride),
-                  np.exp(1j * w * np.arange(-(k - 1), 0)), stride)
+                  np.exp(1j * w * np.arange(-(k - 1), 0)), stride, fm)
         self.out_rate = out_rate
 
     @classmethod
-    def from_numpy(cls, taps_mod, rot, hist0, stride: int) -> "DdcFm":
+    def from_numpy(cls, taps_mod, rot, hist0, stride: int, fm: bool = True
+                   ) -> "DdcFm":
         """A front end from its host constants (e.g. those of the JAX
         package's DdcFm): modulated taps, discriminator rotation, block-0
         history and stride. `out_rate` stays unknown (None)."""
         fe = cls.__new__(cls)
-        fe._set(taps_mod, rot, hist0, stride)
+        fe._set(taps_mod, rot, hist0, stride, fm)
         fe.out_rate = None
         return fe
 
-    def _set(self, taps_mod, rot, hist0, stride: int) -> None:
+    def _set(self, taps_mod, rot, hist0, stride: int, fm: bool) -> None:
         self.taps_mod = np.asarray(taps_mod, dtype=np.complex128)
-        self.rot = complex(rot)
+        self.rot = np.asarray(rot, dtype=np.complex128)
         self.hist0 = np.asarray(hist0, dtype=np.complex128)
         self.stride = int(stride)
+        self.fm = bool(fm)
         self._dev_consts: dict = {}
 
     @property
     def ntaps(self) -> int:
-        return len(self.taps_mod)
+        return self.taps_mod.shape[-1]
 
-    def consts(self, device) -> tuple[torch.Tensor, ...]:
-        """(taps_mod, taps_rev, rot (1,), hist0) as complex64 on `device`."""
-        device = torch.device(device)
-        c = self._dev_consts.get(device)
+    def consts(self, device, dtype=torch.complex64) -> tuple[torch.Tensor, ...]:
+        """(taps_mod, taps_rev, rot, hist0) in `dtype` on `device`: (K,),
+        (K,), (1,), (K-1,) for one channel; (C, K), (C, K), (C,), (C, K-1)
+        for a bank."""
+        key = (torch.device(device), dtype)
+        c = self._dev_consts.get(key)
         if c is None:
             def t(a):
-                return torch.as_tensor(np.asarray(a), dtype=torch.complex64,
-                                       device=device).contiguous()
-            c = self._dev_consts[device] = (
-                t(self.taps_mod), t(self.taps_mod[::-1].copy()),
-                t([self.rot]), t(self.hist0))
+                return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                       device=key[0])
+            c = self._dev_consts[key] = (
+                t(self.taps_mod), t(self.taps_mod[..., ::-1]),
+                t(self.rot.reshape(-1)), t(self.hist0))
         return c
 
     def resident_frontend(self, raw: torch.Tensor, n: int) -> torch.Tensor:
         """Whole-capture front end over `n` samples of raw bytes that already
-        sit on the device: block 0 (PROC_CHUNKSIZE samples) through
-        `fir_decimate`, the whole remainder through ONE K1 call (its byte
-        offsets are 64-bit, so no chunking is needed). The per-output windows
-        are those of the blocked `DdcFmStream`."""
-        j, k = self.stride, self.ntaps
-        taps_mod, taps_rev, rot, hist0 = self.consts(raw.device)
-        b0 = min(n, constants.PROC_CHUNKSIZE)
-        x0 = unpack.iq_u8_to_complex(raw[: 2 * b0])
-        c, _ = fir.fir_decimate(x0, taps_mod, hist0, 0,
-                                rs.decim_count(b0, 0, j), j)
-        audio0 = torch.angle(c[1:] * c[:-1].conj() * rot)
-        if b0 >= n:
-            return audio0
-        off = rs.decim_phase(b0, j)
-        out_len = rs.decim_count(n - b0, off, j)
-        seg = raw[2 * (b0 - (k - 1) + off): 2 * n]
-        audio1, _ = ddc.ddc_fm_u8(seg, taps_rev, rot, c[-1:].contiguous(), j,
-                                  out_len)
-        return torch.cat([audio0, audio1])
+        sit on the device: the capture as one block of `DdcFmStream`, so one
+        K1 call over all of it (its sample offsets are 64-bit). The outputs
+        are those of the blocked stream, bit for bit."""
+        return DdcFmStream(self, raw.device).step(raw[: 2 * n], 0)
 
     def process(self, source, block_size: int = constants.PROC_CHUNKSIZE,
-                device="cpu") -> tuple[np.ndarray, int]:
-        """Blocked run over a whole source on `device`; returns (host audio,
-        out_rate)."""
-        stream = DdcFmStream(self, device)
+                device=None, dtype=torch.complex64) -> tuple[np.ndarray, int]:
+        """Blocked run over a whole source on `device` (the port's device
+        rule, `device.resolve`) in `dtype`; returns (host output, out_rate).
+        A source with raw bytes feeds them as they are."""
+        stream = DdcFmStream(self, device, dtype)
         outs = [stream.step(x, s).cpu()
-                for s, _, x in BlockFeeder(source, block_size, device)]
-        return torch.cat(outs).numpy(), self.out_rate
+                for s, _, x in BlockFeeder(source, block_size, stream.device, dtype)]
+        return torch.cat(outs, dim=-1).numpy(), self.out_rate
 
 
 class DdcFmStream:
-    """Block-by-block front end with the stream carry: the complex conv
-    history `hist` (K-1 samples), the last conv output `c_prev`, and for a
-    raw-byte stream the last 2(K-1) bytes `raw_hist`, from which `hist` is
-    rebuilt when a complex block follows raw ones."""
+    """Block-by-block front end with the stream carry: the last conv output
+    `c_prev` and the history `hist`, the last K-1 samples in the form of the
+    last block: its 2(K-1) bytes after a raw block, complex samples after a
+    complex one. Before the first block it is the virtual all-ones NCO
+    history `hist0`, (K-1,) for one channel and (C, K-1) for a bank, whose
+    history stays per channel until K-1 samples have gone by. A stream may
+    take raw blocks and then complex ones, or the reverse, as the JAX
+    package's stream does, whose carry `load_state` takes over."""
 
-    def __init__(self, fe: DdcFm, device="cpu"):
+    def __init__(self, fe: DdcFm, device=None, dtype=torch.complex64):
+        if dtype not in _COMPLEX:
+            raise ValueError(f"stream dtype {dtype}: complex64 or complex128")
         self.fe = fe
-        self.device = torch.device(device)
-        _, _, _, hist0 = fe.consts(self.device)
-        self.hist = hist0
-        self.c_prev = torch.zeros(1, dtype=torch.complex64, device=self.device)
-        self.raw_hist = None
+        self.device = resolve(device)
+        self.dtype = dtype
+        _, _, rot, self.hist = fe.consts(self.device, dtype)
+        self.c_prev = torch.zeros(rot.shape[0], dtype=dtype, device=self.device)
 
     def load_state(self, hist, c_prev, raw_hist=None) -> None:
         """Take over a stream's carry given as host arrays (e.g. the JAX
-        DdcFmStream's `state` and `raw_hist`); `hist` may be None when
-        `raw_hist` is given."""
+        DdcFmStream's `state` and `raw_hist`): the history is `raw_hist`
+        (bytes) when it is given, else `hist` (complex samples)."""
         def t(a, dtype):
             return torch.as_tensor(np.array(a), dtype=dtype,
                                    device=self.device).contiguous()
-        self.hist = None if hist is None else t(hist, torch.complex64)
-        self.c_prev = t(c_prev, torch.complex64).reshape(1)
-        self.raw_hist = None if raw_hist is None else t(raw_hist, torch.uint8)
+        self.hist = (t(hist, self.dtype) if raw_hist is None
+                     else t(raw_hist, torch.uint8))
+        self.c_prev = t(c_prev, self.dtype).reshape(-1)
+
+    def _samples(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.uint8:
+            return unpack.iq_u8_to_complex(x, self.dtype)
+        return x.to(self.dtype)
 
     def step(self, x: torch.Tensor, s: int) -> torch.Tensor:
-        """One block (complex64, or raw uint8 bytes) at global sample index
-        `s`, on the stream's device; returns the block's audio."""
+        """One block (complex, or raw uint8 bytes) at global sample index
+        `s`, on the stream's device; returns the block's output, (L,) for
+        one channel and (C, L) for a bank. Block 0 (s == 0) drops its first
+        FM output, as the reference's first chunk does."""
         fe = self.fe
-        j, k = fe.stride, fe.ntaps
-        taps_mod, taps_rev, rot, _ = fe.consts(self.device)
+        j = fe.stride
         is_u8 = x.dtype == torch.uint8
         n = x.shape[0] // 2 if is_u8 else x.shape[0]
         off = rs.decim_phase(s, j)
         out_len = rs.decim_count(n, off, j)
-        if is_u8 and s > 0 and self.raw_hist is not None and out_len > 0:
-            raw_cat = torch.cat([self.raw_hist, x])
-            audio, self.c_prev = ddc.ddc_fm_u8(raw_cat[2 * off:], taps_rev,
-                                               rot, self.c_prev, j, out_len)
-            self.hist = None
-            self.raw_hist = raw_cat[-2 * (k - 1):].clone()
-            return audio
-        if self.hist is None:
-            self.hist = unpack.iq_u8_to_complex(self.raw_hist)
-        xc = unpack.iq_u8_to_complex(x) if is_u8 else x.to(torch.complex64)
         if out_len == 0:
             # a block shorter than its decimator phase has no output; only
-            # the histories move on
-            self.hist = torch.cat([self.hist, xc])[-(k - 1):]
-            self.raw_hist = (torch.cat([self.raw_hist, x])[-2 * (k - 1):]
-                             if is_u8 and self.raw_hist is not None else None)
-            return torch.empty(0, dtype=torch.float32, device=self.device)
-        c, self.hist = fir.fir_decimate(xc, taps_mod, self.hist, off, out_len, j)
-        if s == 0:
-            audio = torch.angle(c[1:] * c[:-1].conj() * rot)
+            # the history moves on
+            real = torch.float64 if self.dtype == torch.complex128 else torch.float32
+            out = torch.empty(self.c_prev.shape[0], 0, device=self.device,
+                              dtype=real if fe.fm else self.dtype)
+        elif fe.fm and self.dtype == torch.complex64:
+            out = self._kernel_block(x, is_u8, off, out_len, s == 0)
         else:
-            prev = torch.cat([self.c_prev, c[:-1]])
-            audio = torch.angle(c * prev.conj() * rot)
-        self.c_prev = c[-1:].contiguous()
-        self.raw_hist = x[-2 * (k - 1):] if is_u8 else None
-        return audio
+            out = self._fir_block(x, off, out_len, s == 0)
+        self._advance(x, is_u8, n)
+        return out[0] if fe.channels is None else out
+
+    def _advance(self, x: torch.Tensor, is_u8: bool, n: int) -> None:
+        """The history after the block `x` of n samples: the last K-1
+        samples of [hist | x], in x's form once x alone holds them."""
+        k = self.fe.ntaps
+        h = self.hist
+        if n >= k - 1:
+            self.hist = (x[-2 * (k - 1):] if is_u8
+                         else self._samples(x[-(k - 1):])).clone()
+        elif is_u8 and h.dtype == torch.uint8:
+            self.hist = torch.cat([h, x])[-2 * (k - 1):]
+        else:
+            h = self._samples(h)
+            self.hist = torch.cat([h, self._samples(x).expand(h.shape[:-1] + (-1,))],
+                                  dim=-1)[..., -(k - 1):].clone()
+
+    def _kernel_block(self, x, is_u8, off, out_len, first):
+        """K1 (raw block) or K4 (complex block) over [hist | x][off:]. The
+        kernel reads the history in place when it is one history in the
+        block's own form; otherwise (per channel, or raw beside complex) the
+        outputs whose windows reach into it come from `ddc.conv_windows`
+        first and the kernel takes the rest of the block."""
+        fe = self.fe
+        j, k = fe.stride, fe.ntaps
+        _, taps_rev, rot, _ = fe.consts(self.device)
+        taps_rev = taps_rev.reshape(rot.shape[0], -1)      # (C, K)
+        kern = ddc.ddc_fm_u8 if is_u8 else ddc.ddc_fm_c64
+        per = 2 if is_u8 else 1                            # elements a sample
+        xs = x if is_u8 else self._samples(x)
+        h = self.hist
+        if h.dim() == 1 and (h.dtype == torch.uint8) == is_u8:
+            nh = h.shape[0] // per
+            head, src = (h[per * off:], xs) if off < nh else (None, xs[per * (off - nh):])
+            audio, self.c_prev = kern(src, taps_rev, rot, self.c_prev, j, out_len,
+                                      head=head)
+        else:
+            # head: outputs m with off + m*J < K-1 read the history
+            nh = min(out_len, max(0, -(-(k - 1 - off) // j)))
+            c_prev, audio = self.c_prev, []
+            if nh:
+                hs = self._samples(h).reshape(-1, k - 1).expand(rot.shape[0], -1)
+                xh = self._samples(x[: per * (off + nh * j)])
+                seg = torch.cat([hs, xh.expand(rot.shape[0], -1)], dim=1)[:, off:]
+                c_head = torch.cat([ddc.conv_windows(seg[ch], taps_rev[ch], j, nh)
+                                    for ch in range(rot.shape[0])])
+                prev = torch.cat([c_prev[:, None], c_head[:, :-1]], dim=1)
+                audio.append(torch.angle(c_head * prev.conj() * rot[:, None]))
+                c_prev = c_head[:, -1].contiguous()
+            if out_len > nh:
+                start = off + nh * j - (k - 1)          # first body window in x
+                body, c_prev = kern(xs[per * start:], taps_rev, rot, c_prev, j,
+                                    out_len - nh)
+                audio.append(body)
+            audio = torch.cat(audio, dim=1)
+            self.c_prev = c_prev
+        return audio[:, 1:] if first else audio
+
+    def _fir_block(self, x, off, out_len, first):
+        """`fir.fir_decimate` a channel, then the discriminator (in the
+        stream's precision) if the front end has one."""
+        fe = self.fe
+        taps_mod, _, rot, _ = fe.consts(self.device, self.dtype)
+        taps_mod = taps_mod.reshape(rot.shape[0], -1)
+        hs = self._samples(self.hist)
+        xc = self._samples(x)
+        c = torch.stack([
+            fir.fir_decimate(xc, taps_mod[ch], hs[ch] if hs.dim() == 2 else hs,
+                             off, out_len, fe.stride)[0]
+            for ch in range(rot.shape[0])])
+        prev = torch.cat([self.c_prev[:, None], c[:, :-1]], dim=1)
+        self.c_prev = c[:, -1].contiguous()
+        if not fe.fm:
+            return c
+        audio = torch.angle(c * prev.conj() * rot[:, None])
+        return audio[:, 1:] if first else audio

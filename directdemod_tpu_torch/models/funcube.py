@@ -55,7 +55,7 @@ class FuncubeDecoder(PskSyncDetector):
 
         freq_fn = None
         if corrfreq:
-            self._init_device(sigsrc, device)
+            self._init_device(device)
             tracker = DopplerTracker(_waterfall_bytes(sigsrc), sigsrc.sampFreq,
                                      int(center_frequency), int(signal_freq),
                                      device=self.device)

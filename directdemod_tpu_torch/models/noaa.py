@@ -45,7 +45,7 @@ class NoaaDecoder(TimedDecoder):
         self.src = sigsrc
         self.offset = float(offset)
         self.bw = int(bw) if bw else K.NOAA_FMBW
-        self._init_device(sigsrc, device)
+        self._init_device(device)
         self._audio = None           # (tensor, rate) at the crude-sync rate
         self._audio_strict = None    # (ndarray, rate) at NOAA_AUDSAMPRATE
         self._sync_a = None

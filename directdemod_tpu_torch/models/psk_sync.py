@@ -260,7 +260,7 @@ class PskSyncDetector(TimedDecoder):
         self.block_size = int(block_size)
         self.n_segments = int(n_segments) if n_segments else 1
         self.warmup_symbols = int(warmup_symbols)
-        self._init_device(sigsrc, device)
+        self._init_device(device)
         self._useful = 0
         self._syncs = None
         self._dry_run = False

@@ -6,18 +6,17 @@ import time
 
 import torch
 
+from ..device import resolve
+
 
 class TimedDecoder:
-    """Base of the decoders: `device` defaults to the source's own device
-    for a `DeviceRawSource`, else the CPU; `stage_seconds` accumulates each
-    stage's time (CUDA events on a card, the host clock on the CPU)."""
+    """Base of the decoders: `device` follows the port's device rule
+    (`device.resolve`: None is the current CUDA device); `stage_seconds`
+    accumulates each stage's time (CUDA events on a card, the host clock on
+    the CPU)."""
 
-    def _init_device(self, sigsrc, device) -> None:
-        dev = torch.device(device if device is not None
-                           else getattr(sigsrc, "device", "cpu"))
-        if dev.type == "cuda" and dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-        self.device = dev
+    def _init_device(self, device) -> None:
+        self.device = resolve(device)
         self._timers: list = []
 
     @contextlib.contextmanager

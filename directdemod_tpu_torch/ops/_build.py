@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
 into a shared library under the package's `_build/` directory (listed in
 `.gitignore`), then loaded with `ctypes`. The library's file name carries a
-hash of the source and the compiler flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is. Nothing here runs at import time.
+hash of the source, the shared headers `csrc/*.cuh` and the compiler flags,
+so an edited source is rebuilt and an unchanged one is loaded as it is.
+Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -46,9 +47,13 @@ def flags(name: str) -> tuple:
 
 
 def library_path(name: str) -> str:
-    """Where the build of `csrc/<name>.cu` lives for its current source."""
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        h = hashlib.sha256(f.read())
+    """Where the build of `csrc/<name>.cu` lives for its current source and
+    the headers beside it (`csrc/*.cuh`)."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(flags(name)).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 

@@ -1,10 +1,10 @@
 """FIR filtering as strided convolution.
 
 Port of `directdemod_tpu/ops/fir.py:117-221`: the stateful chunked FIR
-(overlap-save: the carried state is the last `ntaps-1` input samples), the
-fused filter + stride-decimation that computes only the kept outputs,
-scipy's `filtfilt(b, [1], x)` zero-phase mode, and NumPy's / SciPy's
-'same'-mode convolution and correlation. All of them are `F.conv1d` calls
+(overlap-save: the carried state is the last `ntaps-1` input samples, all
+ones before the first block), the fused filter + stride-decimation that
+computes only the kept outputs, scipy's `filtfilt(b, [1], x)` zero-phase
+mode, and NumPy's / SciPy's 'same'-mode convolution and correlation. All of them are `F.conv1d` calls
 over the last axis; leading axes are batch axes.
 """
 from __future__ import annotations
@@ -89,6 +89,13 @@ def fir_zero_phase(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
     yr = yf.flip(-1)
     yb, _ = fir_apply(yr, t, yr[..., :1].expand(yr.shape[:-1] + (k - 1,)))
     return yb.flip(-1)[..., padlen:padlen + n]
+
+
+def ones_history(ntaps: int, dtype, device=None) -> torch.Tensor:
+    """First-block FIR history reproducing the reference's lfilter_zi seed:
+    an all-ones past input (`design.step_history_equivalent` in the JAX
+    package)."""
+    return torch.ones(ntaps - 1, dtype=dtype, device=device)
 
 
 def convolve_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ..device import resolve
 
 log = logging.getLogger(__name__)
 
@@ -164,12 +165,13 @@ def _from_words(words) -> int:
 
 
 def initial_state(p: PskParams, sync_len: int, n_segments: int = 1,
-                  device="cpu") -> dict:
+                  device=None) -> dict:
     """The scan state of `n_segments` independent scans (the JAX
     `initial_state` per row): {"f": (S, N_FLOAT) float32, "i": (S, N_INT)
-    int64}."""
+    int64} on `device` (the port's device rule, `device.resolve`)."""
     if not 0 < sync_len <= MAX_SYNC_BITS:
         raise ValueError(f"sync length {sync_len} outside 1..{MAX_SYNC_BITS}")
+    device = resolve(device)
     f = torch.zeros(n_segments, N_FLOAT, dtype=torch.float32, device=device)
     f[:, F_AGC_MEAN] = p.agc_mean0
     f[:, F_FREQ] = 0.001

@@ -253,7 +253,8 @@ def _key(frames):
 
 
 def test_designed_constants_equal_jax():
-    dec = Afsk1200Decoder(ArraySource(np.zeros(10, np.complex64), FS), OFF)
+    dec = Afsk1200Decoder(ArraySource(np.zeros(10, np.complex64), FS), OFF,
+                          device="cpu")
     fe = dec._frontend()
     jfe = JDdcFm(FS, OFF, jdesign.blackmanharris(151), constants.AFSK_DEFAULT_BW,
                  fm=False)
@@ -279,8 +280,8 @@ def test_fm_audio_matches_jax_resident_complex(aprs_capture, monkeypatch):
     c = np.asarray(jfe.resident_complex(jnp.asarray(raw), n)).astype(np.complex64)
     ref = np.angle(c[1:] * np.conj(c[:-1]) * np.complex64(jfe.rot))
     src = DeviceRawSource(torch.from_numpy(raw), FS)
-    resident = Afsk1200Decoder(src, OFF)
-    blocked = Afsk1200Decoder(src, OFF)
+    resident = Afsk1200Decoder(src, OFF, device="cpu")
+    blocked = Afsk1200Decoder(src, OFF, device="cpu")
     blocked._device_inputs = lambda: (None, n)
     for dec in (resident, blocked):
         got, rate = dec._baseband_audio()
@@ -293,7 +294,7 @@ def test_fm_audio_matches_jax_resident_complex(aprs_capture, monkeypatch):
 
 def test_decoder_matches_jax_on_complex_source(aprs_capture):
     iq, _ = aprs_capture
-    dec = Afsk1200Decoder(ArraySource(iq, FS), OFF)
+    dec = Afsk1200Decoder(ArraySource(iq, FS), OFF, device="cpu")
     jdec = jafsk.Afsk1200Decoder(JArraySource(iq, FS), OFF)
     frames = dec.get_frames()
     assert _key(frames) == _key(jdec.get_frames())
@@ -311,7 +312,8 @@ def test_decoder_matches_jax_on_raw_bytes(aprs_capture, tmp_path, monkeypatch):
     raw.tofile(p)
     monkeypatch.setattr(constants, "PROC_CHUNKSIZE", 200_000)
     before = ddc.LAUNCHES, peaks.LAUNCHES
-    dec = Afsk1200Decoder(DeviceRawSource(torch.from_numpy(raw), FS), OFF)
+    dec = Afsk1200Decoder(DeviceRawSource(torch.from_numpy(raw), FS), OFF,
+                          device="cpu")
     jdec = jafsk.Afsk1200Decoder(JIQDat(str(p), FS), OFF)
     assert _key(dec.get_frames()) == _key(jdec.get_frames())
     assert dec.useful == jdec.useful == 1 and dec.device.type == "cpu"
@@ -326,8 +328,8 @@ def test_resident_path_matches_blocked_path(monkeypatch):
     raw = _quantize(_capture(infos, seed=4))
     monkeypatch.setattr(constants, "PROC_CHUNKSIZE", 300_000)
     src = DeviceRawSource(torch.from_numpy(raw), FS)
-    d1 = Afsk1200Decoder(src, OFF)
-    d2 = Afsk1200Decoder(src, OFF)
+    d1 = Afsk1200Decoder(src, OFF, device="cpu")
+    d2 = Afsk1200Decoder(src, OFF, device="cpu")
     d2._device_inputs = lambda: (None, int(src.length))
     f1, f2 = d1.get_frames(), d2.get_frames()
     assert [f.info for f in f1] == infos
@@ -338,7 +340,7 @@ def test_noise_only_capture_is_not_useful():
     rng = np.random.default_rng(9)
     n = 400_000
     iq = (0.3 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))).astype(np.complex64)
-    dec = Afsk1200Decoder(ArraySource(iq, FS), OFF)
+    dec = Afsk1200Decoder(ArraySource(iq, FS), OFF, device="cpu")
     assert dec.get_frames() == [] and dec.useful == 0 and dec.get_msg() is None
 
 
@@ -348,5 +350,6 @@ def test_chip_smoke_synthesizer_decodes():
     raw, infos = chip_smoke.synth_aprs_bytes(3.0, "cpu", seed=3)
     assert raw.dtype == torch.uint8 and raw.shape[0] == 2 * 3 * FS
     assert len(infos) >= 4 and all(len(i) == 30 for i in infos)
-    dec = Afsk1200Decoder(DeviceRawSource(raw, FS), chip_smoke.APRS_OFFSET_HZ)
+    dec = Afsk1200Decoder(DeviceRawSource(raw, FS), chip_smoke.APRS_OFFSET_HZ,
+                          device="cpu")
     assert [f.info for f in dec.get_frames()] == infos

@@ -4,6 +4,7 @@ and quirks, the JSON report, and the products held against the JAX
 package's CLI on the same IQ.wav (image within one uint8 level on under 1 %
 of pixels, accurate syncs within +/-1 sample, see tests/test_torch_noaa.py
 for why; the same APRS payload; the same PSK sync CSV)."""
+import functools
 import json
 import os
 import subprocess
@@ -25,6 +26,8 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NAME = "SDRSharp_20170830_073907Z_137590000Hz_IQ.wav"
+# the port's CLI on the CPU: without a CUDA device `cli.main` must be told
+main_cpu = functools.partial(cli.main, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -51,7 +54,7 @@ def test_cli_matches_jax_cli(noaa_wav, tmp_path, monkeypatch):
     tolerance and the same sync CSV within +/-1 sample."""
     monkeypatch.chdir(tmp_path)
     outs, reps = {}, {}
-    for name, main in (("port", cli.main), ("jax", jcli.main)):
+    for name, main in (("port", main_cpu), ("jax", jcli.main)):
         outs[name] = str(tmp_path / name)
         reps[name] = str(tmp_path / f"{name}.json")
         rc = main(["-c", "137590000", "-f", "137620000", "-d", "noaa",
@@ -83,7 +86,7 @@ def test_cli_sync_flag_quirk(noaa_wav, tmp_path):
     -noimage as ('-n', 'oimage')."""
     report = str(tmp_path / "r.json")
     out = str(tmp_path / "o2")
-    rc = cli.main(["-c", "137590000", "-f", "137620000", "-d", "noaa",
+    rc = main_cpu(["-c", "137590000", "-f", "137620000", "-d", "noaa",
                    "-o", out, "-sync", "-noimage", "-r", report, noaa_wav])
     assert rc == 0
     ch = json.load(open(report))["channels"][0]
@@ -96,7 +99,7 @@ def test_cli_sync_flag_quirk(noaa_wav, tmp_path):
 
 def test_cli_iq_swap_negates_offset(noaa_wav, tmp_path):
     report = str(tmp_path / "r.json")
-    assert cli.main(["-q", "-c", "137590000", "-f", "137620000", "-d", "noaa",
+    assert main_cpu(["-q", "-c", "137590000", "-f", "137620000", "-d", "noaa",
                      "-noimage", "-r", report, noaa_wav]) == 0
     rep = json.load(open(report))
     assert rep["invIQ"] is True and rep["channels"][0]["offset"] == -30000
@@ -106,7 +109,7 @@ def test_cli_failing_channel_is_fenced(noaa_wav, tmp_path):
     """A channel that fails (a start past the capture) does not kill the
     run: the report is written, without the channel."""
     report = str(tmp_path / "r.json")
-    rc = cli.main(["-c", "137590000", "-f", "137620000", "-d", "noaa",
+    rc = main_cpu(["-c", "137590000", "-f", "137620000", "-d", "noaa",
                    "-s", "99999999999", "-r", report, noaa_wav])
     assert rc == 0
     assert json.load(open(report))["channels"] == []
@@ -119,7 +122,7 @@ def test_cli_resident_equals_blocked(noaa_wav, tmp_path):
     for extra in ([], ["--resident"]):
         out = str(tmp_path / f"o{len(extra)}")
         rep = str(tmp_path / f"r{len(extra)}.json")
-        assert cli.main(["-c", "137590000", "-f", "137620000", "-d", "noaa",
+        assert main_cpu(["-c", "137590000", "-f", "137620000", "-d", "noaa",
                          "-o", out, "-r", rep] + extra + [noaa_wav]) == 0
         ch = json.load(open(rep))["channels"][0]
         assert ch["usefulness"] == 1 and ch["resident"] is bool(extra)
@@ -135,7 +138,7 @@ def test_cli_noise_only_capture(tmp_path):
     _write_wav(path, iq, scale=60.0)
     report = str(tmp_path / "r.json")
     out = str(tmp_path / "noise_out")
-    assert cli.main(["-c", "137590000", "-f", "137620000", "-d", "noaa",
+    assert main_cpu(["-c", "137590000", "-f", "137620000", "-d", "noaa",
                      "-o", out, "-r", report, path]) == 0
     assert json.load(open(report))["channels"][0]["usefulness"] == 0
     assert not os.path.exists(out + ".png")
@@ -156,7 +159,7 @@ def test_cli_afsk_matches_jax_cli(aprs_wav, tmp_path, monkeypatch, capsys):
     CLIs print the payload and report the same channel."""
     monkeypatch.chdir(tmp_path)
     reps, printed = {}, {}
-    for name, main in (("port", cli.main), ("jax", jcli.main)):
+    for name, main in (("port", main_cpu), ("jax", jcli.main)):
         reps[name] = str(tmp_path / f"{name}.json")
         capsys.readouterr()
         assert main(["-ce", "-f", "145825000", "-d", "afsk1200", "-r",
@@ -182,7 +185,7 @@ def test_cli_afsk_noise_only_capture(tmp_path, capsys):
     path = str(tmp_path / APRS_NAME)
     _write_wav(path, iq, scale=60.0)
     report = str(tmp_path / "r.json")
-    assert cli.main(["-c", "145813000", "-f", "145825000", "-d", "afsk1200",
+    assert main_cpu(["-c", "145813000", "-f", "145825000", "-d", "afsk1200",
                      "-r", report, path]) == 0
     assert capsys.readouterr().out.strip().endswith("None")
     assert json.load(open(report))["channels"][0]["usefulness"] == 0
@@ -196,7 +199,7 @@ def test_cli_afsk_noise_only_capture(tmp_path, capsys):
     ["-f", "137620000", "-d", "noaa", "--tle=tle.txt"],
 ])
 def test_cli_not_yet_ported_exits_nonzero(noaa_wav, args, capsys):
-    assert cli.main(["-c", "137590000"] + args + [noaa_wav]) != 0
+    assert main_cpu(["-c", "137590000"] + args + [noaa_wav]) != 0
     assert "not yet ported" in capsys.readouterr().out
 
 
@@ -231,7 +234,7 @@ def test_cli_psk_matches_jax_cli(tmp_path, monkeypatch, decoder, extra, name,
     wav = _psk_wav(str(tmp_path / name), raw.numpy())
     monkeypatch.chdir(tmp_path)
     reps, csvs = {}, {}
-    for tag, main in (("port", cli.main), ("jax", jcli.main)):
+    for tag, main in (("port", main_cpu), ("jax", jcli.main)):
         reps[tag] = str(tmp_path / f"{tag}.json")
         assert main(freqs + ["-d", decoder] + extra
                     + ["-o", tag, "-r", reps[tag], wav]) == 0

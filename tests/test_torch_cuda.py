@@ -1,15 +1,21 @@
-"""The port on a CUDA card: K1, K2 and K3 against their plain versions, and
-the card's front end and NOAA, AFSK, Funcube and Meteor decodes against the
-same code on the CPU.
+"""The port on a CUDA card: K1, K2, K3 and K4 against their plain versions,
+and the card's front ends (raw and complex, one channel and a bank), the FM
+decoder, the stream API and the NOAA, AFSK, Funcube and Meteor decodes
+against the same code on the CPU.
 
 Every test here needs a card and skips without one. The file imports no
 jax, so on a machine without jax it runs alone:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Tolerances: K1 and its plain version are both fp32 and sum in different
-orders, so wrapped phase differences are held to the JAX suite's bars for
-fp32 phase outputs (99.9th percentile < 1e-4, max < 2e-2); K2 and its plain
+Tolerances: K1 and K4 and their plain versions are all fp32 and sum in
+different orders, so wrapped phase differences are held to the JAX suite's
+bars for fp32 phase outputs (99.9th percentile < 1e-4, max < 2e-2), and K4
+to the fp64 oracle within 2e-4 rad (so are K1 and K4 where they stage
+their span in passes); each output's arithmetic does not depend on the
+launch, so a channel of a bank must equal the one-channel launch, and a
+launch that reads a history through `head=` the launch over the
+concatenated samples, bit for bit; K2 and its plain
 version compare the same float32 values, so their events must be equal;
 decodes on the card and on the CPU to the bars of tests/test_torch_noaa.py
 (equal crude syncs, image within one uint8 level on under 1 % of pixels,
@@ -63,7 +69,7 @@ def _phase_close(a, b):
         np.percentile(d, 99.9), d.max())
 
 
-@pytest.mark.parametrize("bw", [60000, 22050])      # J = 34 (NOAA), 92 (AFSK)
+@pytest.mark.parametrize("bw", [60000, 22050, 5000])   # J = 34, 92, 409
 @pytest.mark.parametrize("out_len", [1, 127, 128, 129, 5000, 100_003])
 def test_kernel_matches_plain(dev, out_len, bw):
     fe = _fe(bw)
@@ -91,6 +97,161 @@ def test_kernel_rejects_mixed_devices(dev):
     cp = torch.zeros(1, dtype=torch.complex64, device=dev)
     with pytest.raises(ValueError):
         ddc.ddc_fm_u8(raw, taps_rev, rot.to(dev), cp, j, 10)
+
+
+def _bank(bw, freqs=(30000,)):
+    """(C, K) reversed taps, rot and c_prev on the card for `freqs`."""
+    from directdemod_tpu_torch.models.multichannel import MultiDdcFm
+    m = MultiDdcFm(FS, freqs, design.blackmanharris(151), bw)
+    _, taps_rev, rot, _ = m.consts("cuda")
+    cp = torch.tensor([1 + 0.5j] * len(freqs), dtype=torch.complex64, device="cuda")
+    return m, taps_rev, rot, cp
+
+
+def _oracle(x, taps_rev, rot, cp, j, out_len):
+    """fp64 windows and discriminator of one channel (host)."""
+    w = taps_rev.cpu().numpy().astype(np.complex128)
+    xx = x.cpu().numpy().astype(np.complex128)
+    win = np.lib.stride_tricks.sliding_window_view(xx, len(w))[::j][:out_len]
+    c = win @ w
+    prev = np.concatenate([[complex(cp.cpu()[0])], c[:-1]])
+    return np.angle(c * np.conj(prev) * complex(rot.cpu()[0])), c
+
+
+@pytest.mark.parametrize("bw", [60000, 30000, 5000])    # J = 34, 68, 409
+@pytest.mark.parametrize("out_len", [1, 127, 128, 129, 5000, 100_003])
+def test_k4_matches_plain_and_oracle(dev, out_len, bw):
+    """K4 against its plain version (fp32 bars) and the fp64 oracle
+    (< 2e-4 rad); c_last is c[out_len-1] at any out_len."""
+    m, taps_rev, rot, cp = _bank(bw)
+    j, k = m.stride, m.ntaps
+    n = (out_len - 1) * j + k
+    rng = np.random.default_rng(out_len + bw)
+    x = torch.from_numpy((rng.standard_normal(n) + 1j * rng.standard_normal(n))
+                         .astype(np.complex64)).to(dev)
+    before = ddc.LAUNCHES_C64
+    a_k, c_k = ddc.ddc_fm_c64(x, taps_rev, rot, cp, j, out_len)
+    a_p, c_p = ddc.ddc_fm_c64_plain(x, taps_rev, rot, cp, j, out_len)
+    torch.cuda.synchronize()
+    assert ddc.LAUNCHES_C64 == before + 1
+    assert a_k.shape == (1, out_len) and c_k.shape == (1,)
+    _phase_close(a_k.cpu(), a_p.cpu())
+    ref, c = _oracle(x, taps_rev[0], rot, cp, j, out_len)
+    d = np.abs(np.angle(np.exp(1j * (a_k[0].cpu().numpy() - ref))))
+    assert d.max() < 2e-4
+    assert abs(complex(c_k.cpu()[0]) - c[-1]) < 5e-6 * np.abs(c).max()
+
+
+@pytest.mark.parametrize("kind", ["u8", "c64"])
+def test_channel_axis_equals_single_channels_bit_for_bit(dev, kind):
+    """Three channels in one launch: each channel's outputs equal the
+    one-channel launch at its offset bit for bit (the channel loop keeps
+    each output's arithmetic)."""
+    freqs = (120_000, 412_500, -400_000)
+    m, taps_rev, rot, cp = _bank(60000, freqs)
+    j, k, out_len = m.stride, m.ntaps, 70_001
+    n = (out_len - 1) * j + k
+    rng = np.random.default_rng(3)
+    if kind == "u8":
+        x = torch.from_numpy(rng.integers(0, 256, 2 * n).astype(np.uint8)).to(dev)
+        fn = ddc.ddc_fm_u8
+    else:
+        x = torch.from_numpy((rng.standard_normal(n) + 1j * rng.standard_normal(n))
+                             .astype(np.complex64)).to(dev)
+        fn = ddc.ddc_fm_c64
+    audio, c_last = fn(x, taps_rev, rot, cp, j, out_len)
+    assert audio.shape == (3, out_len)
+    for ch in range(3):
+        a1, c1 = fn(x, taps_rev[ch].contiguous(), rot[ch:ch + 1].contiguous(),
+                    cp[ch:ch + 1].contiguous(), j, out_len)
+        assert torch.equal(audio[ch], a1) and torch.equal(c_last[ch:ch + 1], c1)
+
+
+def _bank_input(kind, n, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "u8":
+        return (torch.from_numpy(rng.integers(0, 256, 2 * n).astype(np.uint8))
+                .to("cuda"), ddc.ddc_fm_u8, ddc.ddc_fm_u8_plain)
+    return (torch.from_numpy((rng.standard_normal(n) + 1j * rng.standard_normal(n))
+                             .astype(np.complex64)).to("cuda"),
+            ddc.ddc_fm_c64, ddc.ddc_fm_c64_plain)
+
+
+def _as_samples(kind, x):
+    if kind == "u8":
+        r = x.cpu().numpy().astype(np.float64) - 127.5
+        return torch.from_numpy(r[0::2] + 1j * r[1::2])
+    return x
+
+
+@pytest.mark.parametrize("kind", ["u8", "c64"])
+@pytest.mark.parametrize("out_len", [1, 31, 32, 5000])
+def test_staging_in_passes_matches_plain_and_oracle(dev, kind, out_len):
+    """J = 1,024 (a 2 kHz `-b`): even at T = 32 the span of a block does not
+    fit the shared memory, so the kernels stage it in passes; two channels,
+    each against the plain version (fp32 bars) and the fp64 oracle."""
+    m, taps_rev, rot, cp = _bank(2000, (30000, -70000))
+    j, k = m.stride, m.ntaps
+    assert j == 1024
+    n = (out_len - 1) * j + k
+    x, fn, plain = _bank_input(kind, n, out_len)
+    a_k, c_k = fn(x, taps_rev, rot, cp, j, out_len)
+    a_p, _ = plain(x, taps_rev, rot, cp, j, out_len)
+    torch.cuda.synchronize()
+    _phase_close(a_k.cpu(), a_p.cpu())
+    xs = _as_samples(kind, x)
+    for ch in range(2):
+        ref, c = _oracle(xs, taps_rev[ch], rot[ch:ch + 1], cp[ch:ch + 1], j, out_len)
+        d = np.abs(np.angle(np.exp(1j * (a_k[ch].cpu().numpy() - ref))))
+        assert d.max() < 2e-4
+        assert abs(complex(c_k.cpu()[ch]) - c[-1]) < 5e-6 * np.abs(c).max()
+
+
+@pytest.mark.parametrize("kind", ["u8", "c64"])
+@pytest.mark.parametrize("n_head", [1, 150])
+def test_kernel_reads_a_head_in_place(dev, kind, n_head):
+    """[head | x] through two pointers equals the launch over the
+    concatenated samples bit for bit."""
+    m, taps_rev, rot, cp = _bank(60000, (30000, -70000))
+    j, k, out_len = m.stride, m.ntaps, 20_011
+    n = (out_len - 1) * j + k
+    x, fn, _ = _bank_input(kind, n, n_head)
+    cut = n_head * (2 if kind == "u8" else 1)
+    whole = fn(x, taps_rev, rot, cp, j, out_len)
+    split = fn(x[cut:].clone(), taps_rev, rot, cp, j, out_len, head=x[:cut].clone())
+    assert torch.equal(whole[0], split[0]) and torch.equal(whole[1], split[1])
+
+
+def test_complex_front_ends_on_the_card_match_cpu(dev):
+    """FmDecoder, Stream.run_fused and a complex MultiDdcFm on the card: one
+    K4 launch a block, and the CPU's outputs within the fp32 bars."""
+    from directdemod_tpu_torch.models.fm import FmDecoder
+    from directdemod_tpu_torch.models.multichannel import MultiDdcFm
+    from directdemod_tpu_torch.ops import filters
+    from directdemod_tpu_torch.stream.api import Stream
+    n = 1_300_017
+    t = np.arange(n) / FS
+    rng = np.random.default_rng(4)
+    x = (90 * np.exp(1j * (2 * np.pi * 30000 * t + 3 * np.sin(2 * np.pi * 700 * t)))
+         + 2 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+         ).astype(np.complex64)
+    src = sources.ArraySource(x, FS)
+    blocks = 5
+    out = {}
+    for where in ("cuda", "cpu"):
+        before = ddc.LAUNCHES_C64
+        fm = FmDecoder(src, 30000, device=where)
+        fm.get_audio()
+        fused = (Stream(src, device=where).shift(30000)
+                 .filter(filters.blackman_harris(151)).bw_limit(60000).fm_demod()
+                 .run_fused(block_size=300_000))
+        bank = MultiDdcFm(FS, (30000, -200_000), design.blackmanharris(151),
+                          60000).process(src, block_size=300_000, device=where)
+        out[where] = (fm._audio[0], fused[0], bank[0], ddc.LAUNCHES_C64 - before)
+    assert out["cuda"][3] == 1 + 2 * blocks and out["cpu"][3] == 0
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], atol=1e-4)
+    for i in (1, 2):
+        _phase_close(out["cuda"][i], out["cpu"][i])
 
 
 def _walk_args(y, lookahead):
@@ -138,15 +299,16 @@ def test_walk_kernel_rejects_bad_arguments(dev):
 
 
 def test_afsk_decode_on_the_card_matches_cpu(dev, monkeypatch):
-    """A 20 s APRS capture held on the card (block 0 shortened so the
-    resident front end runs K1 over the remainder) decodes as on the CPU,
+    """A 20 s APRS capture held on the card (the resident front end: one K1
+    launch over the whole capture, block 0 included) decodes as on the CPU,
     frame for frame."""
     monkeypatch.setattr(constants, "PROC_CHUNKSIZE", 4_000_000)
     raw, infos = synth_aprs_bytes(20.0, dev, seed=3)
     out = {}
     for where, data in (("cuda", raw), ("cpu", raw.cpu())):
         before = ddc.LAUNCHES, peaks.LAUNCHES
-        dec = Afsk1200Decoder(sources.DeviceRawSource(data, FS), APRS_OFFSET_HZ)
+        dec = Afsk1200Decoder(sources.DeviceRawSource(data, FS), APRS_OFFSET_HZ,
+                              device=where)
         frames = dec.get_frames()
         out[where] = ([(f.info, f.source, f.destination, f.start_bit)
                        for f in frames], dec.useful,
@@ -157,8 +319,9 @@ def test_afsk_decode_on_the_card_matches_cpu(dev, monkeypatch):
 
 
 def test_blocked_stream_from_a_file_matches_cpu(dev, tmp_path):
-    """The pinned-buffer feed of an IQDat file to the card, blocks after the
-    first through the kernel, against the same stream on the CPU."""
+    """The pinned-buffer feed of an IQDat file to the card, every block
+    through the kernel (block 0 after its few history outputs), against the
+    same stream on the CPU."""
     n = 1_300_017
     raw = np.random.default_rng(1).integers(0, 256, 2 * n).astype(np.uint8)
     p = tmp_path / "c.dat"
@@ -167,8 +330,9 @@ def test_blocked_stream_from_a_file_matches_cpu(dev, tmp_path):
     before = ddc.LAUNCHES
     got, rate = fe.process(sources.IQDat(str(p), FS), block_size=300_000,
                            device=dev)
-    assert ddc.LAUNCHES - before == 4          # every block after block 0
-    ref, _ = fe.process(sources.IQDat(str(p), FS), block_size=300_000)
+    assert ddc.LAUNCHES - before == 5          # one a block
+    ref, _ = fe.process(sources.IQDat(str(p), FS), block_size=300_000,
+                        device="cpu")
     assert rate == fe.out_rate and got.shape == ref.shape
     _phase_close(got, ref)
 
@@ -179,28 +343,28 @@ def test_stream_carry_moves_between_devices(dev):
     raw = torch.from_numpy(np.random.default_rng(2).integers(0, 256, 6 * n_blk)
                            .astype(np.uint8))
     fe = _fe()
-    cpu = DdcFmStream(fe)
+    cpu = DdcFmStream(fe, "cpu")
     ref = [cpu.step(raw[2 * i * n_blk: 2 * (i + 1) * n_blk], i * n_blk)
            for i in range(3)]
-    first = DdcFmStream(fe)
+    first = DdcFmStream(fe, "cpu")
     first.step(raw[: 2 * n_blk], 0)
     card = DdcFmStream(fe, dev)
-    card.load_state(first.hist.numpy(), first.c_prev.numpy(),
-                    first.raw_hist.numpy())
+    assert first.hist.dtype == torch.uint8      # a raw stream carries its bytes
+    card.load_state(None, first.c_prev.numpy(), first.hist.numpy())
     for i in (1, 2):
         got = card.step(raw[2 * i * n_blk: 2 * (i + 1) * n_blk].to(dev), i * n_blk)
         _phase_close(got.cpu(), ref[i])
 
 
 def test_noaa_decode_on_the_card_matches_cpu(dev, monkeypatch):
-    """A 24-line pass held on the card (block 0 shortened so the resident
-    front end runs the kernel over the remainder) decodes as on the CPU."""
+    """A 24-line pass held on the card (the resident front end: one K1
+    launch over the whole capture) decodes as on the CPU."""
     monkeypatch.setattr(constants, "PROC_CHUNKSIZE", 4_000_000)
     raw, truth = synth_pass_bytes(24, dev, seed=3)
     out = {}
     for where, data in (("cuda", raw), ("cpu", raw.cpu())):
         before = ddc.LAUNCHES
-        dec = NoaaDecoder(sources.DeviceRawSource(data, FS), 30000)
+        dec = NoaaDecoder(sources.DeviceRawSource(data, FS), 30000, device=where)
         out[where] = (dec.useful, dec.get_crude_sync(), dec.get_image(),
                       dec.get_accurate_sync(), ddc.LAUNCHES - before)
     useful, (sa, sb), img, acc, launches = out["cuda"]
@@ -218,7 +382,7 @@ def test_noaa_decode_on_the_card_matches_cpu(dev, monkeypatch):
 
 def _psk(kind):
     cls = FuncubeDecoder if kind == "bpsk" else MeteorM2Decoder
-    det = cls(sources.ArraySource(np.zeros(16, np.complex64), FS), 0)
+    det = cls(sources.ArraySource(np.zeros(16, np.complex64), FS), 0, device="cpu")
     return det.p, det.cfg.sym_sync, det.cfg.sym_sync_alt
 
 
@@ -239,7 +403,7 @@ def test_scan_kernel_matches_plain(dev, kind, segments):
     if segments == 1:
         st_k, got = pll.symbol_scan(p, x.to(dev), pll.initial_state(p, len(s0), 1, dev),
                                     s0, s1)
-        st_p, want = pll.symbol_scan_plain(p, x, pll.initial_state(p, len(s0)), s0, s1)
+        st_p, want = pll.symbol_scan_plain(p, x, pll.initial_state(p, len(s0), 1, "cpu"), s0, s1)
         assert torch.equal(st_k["i"].cpu(), st_p["i"])
         assert torch.equal(st_k["f"].cpu(), st_p["f"])
     else:
@@ -257,7 +421,7 @@ def test_scan_kernel_block_split_carry(dev):
     the boundary) equal the plain version's two blocks."""
     x = torch.from_numpy(k3_streams(400_000, seed=5)["bpsk"])
     p, s0, s1 = _psk("bpsk")
-    _, whole = pll.symbol_scan_plain(p, x, pll.initial_state(p, 330), s0, s1)
+    _, whole = pll.symbol_scan_plain(p, x, pll.initial_state(p, 330, 1, "cpu"), s0, s1)
     split = int(whole.a_idx[1000]) + 100
     st = pll.initial_state(p, 330, 1, dev)
     st, first = pll.symbol_scan(p, x[:split].to(dev), st, s0, s1)
@@ -275,11 +439,11 @@ def test_scan_kernel_budget_and_arguments(dev):
     x = torch.from_numpy(k3_streams(300_000, seed=6)["qpsk"])
     p, s0, s1 = _psk("qpsk")
     _, got = pll.symbol_scan(p, x.to(dev), pll.initial_state(p, 120, 1, dev), s0, s1)
-    _, want = pll.symbol_scan_plain(p, x, pll.initial_state(p, 120), s0, s1)
+    _, want = pll.symbol_scan_plain(p, x, pll.initial_state(p, 120, 1, "cpu"), s0, s1)
     assert got.count == pll.max_symbols(p, 300_000)
     _same_symbols(got, want)
     with pytest.raises(ValueError):
-        pll.symbol_scan(p, x.to(dev), pll.initial_state(p, 120), s0, s1)
+        pll.symbol_scan(p, x.to(dev), pll.initial_state(p, 120, 1, "cpu"), s0, s1)
     with pytest.raises(ValueError):
         pll.symbol_scan(p, x.to(dev), pll.initial_state(p, 120, 1, dev), s0, s1[:-1])
 
@@ -291,7 +455,7 @@ def test_funcube_decode_on_the_card_matches_cpu(dev, segments):
     for where, data in (("cuda", raw), ("cpu", raw.cpu())):
         before = pll.LAUNCHES
         dec = FuncubeDecoder(sources.DeviceRawSource(data, FS), FC_OFFSET_HZ,
-                             n_segments=segments)
+                             n_segments=segments, device=where)
         out[where] = (dec.get_syncs(), dec.useful, pll.LAUNCHES - before)
     assert out["cuda"][2] == 1 and out["cpu"][2] == 0
     assert out["cuda"][1] == out["cpu"][1] == 1
@@ -305,7 +469,7 @@ def test_funcube_block_loop_on_the_card_matches_cpu(dev):
     for where, data in (("cuda", raw), ("cpu", raw.cpu())):
         before = pll.LAUNCHES
         dec = FuncubeDecoder(sources.DeviceRawSource(data, FS), FC_OFFSET_HZ,
-                             block_size=4_000_000)
+                             block_size=4_000_000, device=where)
         out[where] = (dec.get_syncs(), dec.useful, pll.LAUNCHES - before)
     assert out["cuda"][2] == 6 and out["cpu"][2] == 0
     assert out["cuda"][1] == out["cpu"][1] == 1 and len(out["cuda"][0]) == 1
@@ -320,7 +484,8 @@ def test_meteor_decode_on_the_card_matches_cpu(dev):
     raw, starts = synth_meteor_bytes(1.2, dev, seed=9)
     out = {}
     for where, data in (("cuda", raw), ("cpu", raw.cpu())):
-        dec = MeteorM2Decoder(sources.DeviceRawSource(data, FS), MM_OFFSET_HZ)
+        dec = MeteorM2Decoder(sources.DeviceRawSource(data, FS), MM_OFFSET_HZ,
+                              device=where)
         out[where] = (dec.get_syncs(), dec.useful)
     assert out["cuda"][1] == out["cpu"][1] == 1
     assert len(out["cuda"][0]) == len(out["cpu"][0]) >= len(starts) - 2

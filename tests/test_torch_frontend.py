@@ -59,7 +59,8 @@ def test_process_raw_blocks_match_jax(tmp_path, rng, n, block):
     raw.tofile(p)
     fe, jfe = _fes()
     before = ddc.LAUNCHES
-    got, rate = fe.process(sources.IQDat(str(p), FS), block_size=block)
+    got, rate = fe.process(sources.IQDat(str(p), FS), block_size=block,
+                           device="cpu")
     ref, jrate = jfe.process(JIQDat(str(p), FS), block_size=block)
     assert rate == jrate
     _assert_phase_close(got, ref)
@@ -71,7 +72,8 @@ def test_process_complex_source_matches_jax(rng):
     x = ((rng.integers(0, 256, n) - 127.5)
          + 1j * (rng.integers(0, 256, n) - 127.5)).astype(np.complex64)
     fe, jfe = _fes()
-    got, _ = fe.process(sources.ArraySource(x, FS), block_size=120_000)
+    got, _ = fe.process(sources.ArraySource(x, FS), block_size=120_000,
+                        device="cpu")
     ref, _ = jfe.process(JArraySource(x, FS), block_size=120_000)
     _assert_phase_close(got, ref)
 
@@ -117,7 +119,7 @@ def test_state_handover_from_jax(rng, raw_carry):
     for i in range(handover):
         jstream.step(jnp.asarray(block(i)), i * n_blk)
     hist, c_last = jstream.state
-    port = DdcFmStream(fe)
+    port = DdcFmStream(fe, "cpu")
     port.load_state(np.asarray(hist), np.asarray(c_last),
                     np.asarray(jstream.raw_hist) if raw_carry else None)
     for i in range(handover, blocks):
@@ -132,7 +134,7 @@ def test_mixed_raw_then_complex_blocks(rng):
     raw = rng.integers(0, 256, 2 * n_blk * 3).astype(np.uint8)
     fe, jfe = _fes()
     jstream = JDdcFmStream(jfe)
-    stream = DdcFmStream(fe)
+    stream = DdcFmStream(fe, "cpu")
     for i in range(3):
         seg = raw[2 * i * n_blk: 2 * (i + 1) * n_blk]
         ref = np.asarray(jstream.step(jnp.asarray(seg), i * n_blk))
@@ -148,7 +150,7 @@ def test_from_numpy_matches_designed_front_end(rng):
     fe, jfe = _fes()
     fe2 = DdcFm.from_numpy(jfe.taps_mod, jfe.rot, jfe.hist0, jfe.stride)
     raw = torch.from_numpy(rng.integers(0, 256, 2 * 250_000).astype(np.uint8))
-    a, b = DdcFmStream(fe), DdcFmStream(fe2)
+    a, b = DdcFmStream(fe, "cpu"), DdcFmStream(fe2, "cpu")
     for s in (0, 125_000):
         x = raw[2 * s: 2 * (s + 125_000)]
         assert torch.equal(a.step(x, s), b.step(x, s))

@@ -1,6 +1,7 @@
-"""The PyTorch port imports torch and never jax: every module of the package,
-and the chip smoke script, import in a fresh interpreter without loading
-jax."""
+"""The PyTorch port imports torch and never jax: every module of the package
+(the fourth slice's `device`, `models.fm`, `models.multichannel`,
+`ops.filters` and `stream.*` among them), and the chip smoke script, import
+in a fresh interpreter without loading jax."""
 import os
 import subprocess
 import sys
@@ -17,6 +18,10 @@ import importlib, pkgutil, sys
 import directdemod_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
          if not m.name.endswith("__main__")]
+new = {"directdemod_tpu_torch." + m for m in (
+    "device", "models.fm", "models.multichannel", "ops.filters", "stream.api",
+    "stream.checkpoint", "stream.pipeline", "stream.plan")}
+assert new <= set(names), sorted(new - set(names))
 for name in names + ["chip_smoke"]:
     importlib.import_module(name)
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
@@ -31,7 +36,7 @@ def test_port_modules_import_without_jax():
     proc = subprocess.run([sys.executable, "-c", _CHECK], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 32      # all three slices were walked
+    assert int(proc.stdout.strip()) >= 41      # all four slices were walked
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -39,7 +39,7 @@ def capture():
 def pair(capture):
     iq, truth = capture
     jdec = JNoaaDecoder(JArraySource(iq, FS), 30000, dtype=jnp.complex64)
-    dec = NoaaDecoder(ArraySource(iq, FS), 30000)
+    dec = NoaaDecoder(ArraySource(iq, FS), 30000, device="cpu")
     return dec, jdec, truth
 
 
@@ -104,7 +104,7 @@ def test_accurate_sync_generic_walk(capture, pair, monkeypatch):
     finds (one peak group per window either way)."""
     iq, _ = capture
     _, jdec, _ = pair
-    dec = NoaaDecoder(ArraySource(iq, FS), 30000)
+    dec = NoaaDecoder(ArraySource(iq, FS), 30000, device="cpu")
     monkeypatch.setattr(noaa_mod.K, "NOAA_MINPEAKDIST", 0.0576)
     got = dec.get_accurate_sync(use_norm_correlate=True)
     monkeypatch.undo()
@@ -127,7 +127,8 @@ def test_raw_source_decode_through_k1(capture, pair, monkeypatch):
     iq, _ = capture
     _, jdec, _ = pair
     monkeypatch.setattr(frontend.constants, "PROC_CHUNKSIZE", 4_000_000)
-    dec = NoaaDecoder(DeviceRawSource(torch.from_numpy(_raw_bytes(iq)), FS), 30000)
+    dec = NoaaDecoder(DeviceRawSource(torch.from_numpy(_raw_bytes(iq)), FS), 30000,
+                      device="cpu")
     assert dec.device == torch.device("cpu")
     sa, sb = dec.get_crude_sync()
     ja, jb = jdec.get_crude_sync()
@@ -143,7 +144,7 @@ def test_noise_only_capture_is_not_useful():
     rng = np.random.default_rng(0)
     iq = (0.3 * 60 * (rng.standard_normal(FS) + 1j * rng.standard_normal(FS))) \
         .astype(np.complex64)
-    dec = NoaaDecoder(ArraySource(iq, FS), 30000)
+    dec = NoaaDecoder(ArraySource(iq, FS), 30000, device="cpu")
     jdec = JNoaaDecoder(JArraySource(iq, FS), 30000, dtype=jnp.complex64)
     assert dec.useful == jdec.useful == 0
 

@@ -42,7 +42,7 @@ def _close(got, ref, rtol):
 
 def test_constants_equal_the_reference():
     names = [n for n in dir(constants) if n.isupper()]
-    assert len(names) == 25
+    assert len(names) == 29
     for name in names:
         assert getattr(constants, name) == getattr(jconstants, name), name
 

@@ -141,7 +141,7 @@ def test_plain_scan_matches_jax_symbol_scan(case, rng):
         kw, x, s0, s1 = QPSK, _qpsk_stream(), MS, MS1
     p = pll.PskParams(**kw)
     _, got = pll.symbol_scan_plain(p, torch.from_numpy(x),
-                                   pll.initial_state(p, len(s0)), s0, s1)
+                                   pll.initial_state(p, len(s0), device="cpu"), s0, s1)
     want = _jax_scan(kw, x, s0, s1)
     _assert_symbols(got, want)
     if case == "bpsk_sync":
@@ -156,7 +156,7 @@ def test_plain_scan_matches_the_jax_kernel_in_interpret_mode():
     p = pll.PskParams(**BPSK)
     x = _bpsk_stream(300_000)
     _, got = pll.symbol_scan_plain(p, torch.from_numpy(x),
-                                   pll.initial_state(p, 330), SYNC12, SYNC12)
+                                   pll.initial_state(p, 330, device="cpu"), SYNC12, SYNC12)
     packed = np.asarray(bpsk_symbol_scan_packed(
         jpll.PskParams(**BPSK), jnp.asarray(x), 330,
         jnp.asarray(SYNC12, jnp.float32), True))
@@ -175,7 +175,7 @@ def test_scan_split_into_two_blocks_equals_one(after_a):
     block's, so two blocks scan further than one."""
     p = pll.PskParams(**BPSK)
     x = torch.from_numpy(_bpsk_stream(300_000))
-    st = pll.initial_state(p, 330)
+    st = pll.initial_state(p, 330, device="cpu")
     whole_st, whole = pll.symbol_scan(p, x, st, SYNC12, SYNC12)
     split = int(whole.a_idx[800]) + after_a
     st1, first = pll.symbol_scan(p, x[:split], st, SYNC12, SYNC12)
@@ -218,7 +218,7 @@ def test_scan_budget_stops_like_jax_and_warns(caplog):
     x = _qpsk_stream()
     with caplog.at_level("WARNING"):
         _, got = pll.symbol_scan(p, torch.from_numpy(x),
-                                 pll.initial_state(p, 120), MS, MS1)
+                                 pll.initial_state(p, 120, device="cpu"), MS, MS1)
     assert got.count == pll.max_symbols(p, len(x))
     assert "step budget" in caplog.text
 
@@ -226,7 +226,7 @@ def test_scan_budget_stops_like_jax_and_warns(caplog):
 def test_scan_rejects_bad_arguments():
     p = pll.PskParams(**BPSK)
     x = torch.zeros(1000, dtype=torch.complex64)
-    st = pll.initial_state(p, 330)
+    st = pll.initial_state(p, 330, device="cpu")
     with pytest.raises(ValueError):
         pll.symbol_scan(p, x.real.contiguous(), st, SYNC12, SYNC12)
     with pytest.raises(ValueError):
@@ -236,7 +236,7 @@ def test_scan_rejects_bad_arguments():
     with pytest.raises(ValueError):
         pll.symbol_scan(p, x.to("meta"), st, SYNC12, SYNC12)
     with pytest.raises(ValueError):
-        pll.initial_state(p, pll.MAX_SYNC_BITS + 1)
+        pll.initial_state(p, pll.MAX_SYNC_BITS + 1, device="cpu")
 
 
 # ------------------------------------------------------------------- pass 2
@@ -316,7 +316,8 @@ def jax_funcube(funcube_capture):
 
 @pytest.mark.parametrize("segs", [None, 4])
 def test_funcube_decoder_matches_jax(funcube_capture, jax_funcube, segs):
-    dec = FuncubeDecoder(ArraySource(funcube_capture, FS), 5000, n_segments=segs)
+    dec = FuncubeDecoder(ArraySource(funcube_capture, FS), 5000, n_segments=segs,
+                         device="cpu")
     syncs = dec.get_syncs()
     assert (syncs, dec.useful) == jax_funcube[segs]
     assert dec.useful == 1 and len(syncs) == 1
@@ -332,8 +333,8 @@ def test_funcube_block_loop_matches_whole_capture(funcube_capture, jax_funcube):
     raw[0::2] = np.clip(np.round(iq.real + 127.5), 0, 255)
     raw[1::2] = np.clip(np.round(iq.imag + 127.5), 0, 255)
     src = DeviceRawSource(torch.from_numpy(raw), FS)
-    whole = FuncubeDecoder(src, 5000)
-    small = FuncubeDecoder(src, 5000, block_size=1_000_000)
+    whole = FuncubeDecoder(src, 5000, device="cpu")
+    small = FuncubeDecoder(src, 5000, block_size=1_000_000, device="cpu")
     sw, ss = whole.get_syncs(), small.get_syncs()
     assert whole.useful == small.useful == 1 and len(sw) == len(ss) == 1
     assert abs(sw[0] - ss[0]) < 0.01 * FS
@@ -345,7 +346,7 @@ def test_meteor_decoder_matches_jax():
     cap = _qpsk_capture(frames, dur_s=1.4)
     jd = JMeteor(JArraySource(cap, FS), 4000)
     want = jd.get_syncs()
-    dec = MeteorM2Decoder(ArraySource(cap, FS), 4000)
+    dec = MeteorM2Decoder(ArraySource(cap, FS), 4000, device="cpu")
     assert dec.get_syncs() == want
     assert dec.useful == jd.useful == 1 and len(want) >= 2
 
@@ -367,12 +368,12 @@ def doppler_file(tmp_path_factory):
 def test_doppler_track_matches_jax(doppler_file):
     raw = np.fromfile(doppler_file, np.uint8)
     args = (FS, 145_865_000, 145_870_000, 20000)
-    got = doppler.find_shift(raw, *args)
+    got = doppler.find_shift(raw, *args, device="cpu")
     want = jdoppler.find_shift(raw, *args)
     assert got.shape == want.shape and len(got) > 5
     assert np.max(np.abs(got - want)) <= 250.0
     # a track from the bytes held as a tensor (the resident path) is the same
-    assert np.array_equal(doppler.find_shift(torch.from_numpy(raw), *args), got)
+    assert np.array_equal(doppler.find_shift(torch.from_numpy(raw), *args, device="cpu"), got)
 
 
 def test_doppler_corrected_decoder_matches_jax(doppler_file):
@@ -381,7 +382,7 @@ def test_doppler_corrected_decoder_matches_jax(doppler_file):
                   signal_freq=chan, corrfreq=True)
     want = jd.get_syncs()
     dec = FuncubeDecoder(IQDat(doppler_file, FS), 5000, center_frequency=center,
-                         signal_freq=chan, corrfreq=True)
+                         signal_freq=chan, corrfreq=True, device="cpu")
     got = dec.get_syncs()
     assert dec.useful == jd.useful == 1 and len(got) == len(want) >= 1
     assert np.max(np.abs(np.subtract(got, want))) < 0.01 * FS

@@ -20,7 +20,8 @@ def test_funcube_synth_sync_delay():
     raw, starts = cs.synth_funcube_bytes(11.0, "cpu", seed=5)
     assert raw.dtype == torch.uint8 and raw.shape[0] == 2 * 11 * cs.FS
     assert len(starts) == len(cs.funcube_frames(11.0)) == 2
-    dec = FuncubeDecoder(DeviceRawSource(raw, cs.FS), cs.FC_OFFSET_HZ)
+    dec = FuncubeDecoder(DeviceRawSource(raw, cs.FS), cs.FC_OFFSET_HZ,
+                         device="cpu")
     syncs = dec.get_syncs()
     assert dec.useful == 1 and len(syncs) == len(starts) - 1
     d = np.asarray(syncs) - starts[1:]
@@ -32,7 +33,8 @@ def test_funcube_synth_sync_delay():
 def test_meteor_synth_sync_delay():
     raw, starts = cs.synth_meteor_bytes(1.4, "cpu", seed=5)
     assert len(starts) == len(cs.meteor_frames(1.4)) == 12
-    dec = MeteorM2Decoder(DeviceRawSource(raw, cs.FS), cs.MM_OFFSET_HZ)
+    dec = MeteorM2Decoder(DeviceRawSource(raw, cs.FS), cs.MM_OFFSET_HZ,
+                          device="cpu")
     syncs = dec.get_syncs()
     assert dec.useful == 1 and len(syncs) == len(starts) - 1
     d = np.asarray(syncs) - starts[1:]
