@@ -31,12 +31,15 @@ line) on any error. Phases, in order:
    DeviceRawSource with Afsk1200Decoder, cold and then warm, checking that
    every planted frame comes back CRC-valid with its payload and that K1
    and K2 ran on that path; then hold K2 against its plain version on the
-   first 2^21 samples of that decode's own edge strength;
+   first 2^21 samples of that decode's own edge strength and on all of it
+   (13.36 M samples), print its chunks and the stitch's steps, and time it
+   at several chunk lengths and as one walker (the chain bound);
 9. run the command-line interface on a 30-second APRS IQ.wav;
 10. hold K3 against its plain version on 12,000,000-sample BPSK and QPSK
     streams, sequential and with 8 segments: symbol indices, minsync flags
     and needle choices equal, the largest phase difference printed; time
-    K3 with CUDA events;
+    K3 with CUDA events (ns a symbol), and for the sequential scans read
+    each stage warp's clocks from K3's measurement build;
 11. synthesize a 10-minute Funcube capture (1,228,800,000 samples, 2.46 GB,
     121 frames) on the card and decode it from a DeviceRawSource with
     FuncubeDecoder, sequential, cold and then warm (the block loop, 62 K3
@@ -511,9 +514,9 @@ def phase8_afsk_decode(ddc, peaks, dev) -> tuple[int, int, dict]:
     """Synthesize a 10-minute APRS capture on the card and decode it from
     the bytes held there, cold and then warm; every planted frame must come
     back, in order. Then hold K2 against its plain version on the first
-    2^21 samples of that decode's own edge strength, and time K2 over the
-    whole of it. Returns the warm run's K1 and K2 launch counts and the K2
-    numbers."""
+    2^21 samples of that decode's own edge strength and on the whole of it,
+    and measure its chunks there (`k2_chunks`). Returns the warm run's K1
+    and K2 launch counts and the K2 numbers of the whole walk."""
     from directdemod_tpu_torch.io.sources import DeviceRawSource
     from directdemod_tpu_torch.models.afsk1200 import Afsk1200Decoder
     t0 = time.perf_counter()
@@ -555,16 +558,46 @@ def phase8_afsk_decode(ddc, peaks, dev) -> tuple[int, int, dict]:
     _, edges = Afsk1200Decoder(src, APRS_OFFSET_HZ, device=dev)._edges()
     del raw, src
     lookahead = int(constants.AFSK_DEFAULT_BW // constants.AFSK_BAUDRATE * 0.65)
-    k2 = k2_compare(peaks, edges[: (1 << 21) + lookahead], lookahead, 0.0,
-                    "phase 8 (decode's edges, first 2^21 samples)", 1)
+    k2_compare(peaks, edges[: (1 << 21) + lookahead], lookahead, 0.0,
+               "phase 8 (decode's edges, first 2^21 samples)", 1)
+    k2 = k2_compare(peaks, edges, lookahead, 0.0,
+                    "phase 8 (decode's whole edge strength)", 1)
+    return launches[0], launches[1], {**k2, **k2_chunks(peaks, edges, lookahead)}
+
+
+def k2_chunks(peaks, edges: torch.Tensor, lookahead: int) -> dict:
+    """K2's chunks on the AFSK decode's whole walk: the stitch's steps at
+    the default chunk length, the time at other lengths, and the time of
+    one walker over the whole walk (a single chunk), whose time a step
+    gives the dependent-chain bound: (chunk + the stitch's steps) steps of
+    one walk."""
     limit = edges.shape[0] - lookahead
     fmax, fmin = peaks.forward_window_extrema(edges, lookahead)
     args = (edges[:limit], fmax[:limit].contiguous(), fmin[:limit].contiguous(), 0.0)
-    k2["full_ms"] = cuda_ms(lambda: peaks.lookahead_walk(*args), 3)
-    print(f"phase 8: K2 over the decode's whole edge strength ({limit} "
-          f"samples) {k2['full_ms']:.4f} ms ({k2['full_ms'] * 1e6 / limit:.2f} "
-          f"ns per sample) on {card_line()}", flush=True)
-    return launches[0], launches[1], k2
+    stats = {}
+    peaks.lookahead_walk(*args, stats=stats)
+    steps = stats["stitch_steps"].double()
+    out = {"chunk": stats["chunk"], "chunks": stats["chunks"],
+           "stitch_steps_max": int(steps.max()),
+           "stitch_steps_mean": float(steps.mean()),
+           "unmet_chunks": int((~stats["met"]).sum())}
+    print(f"phase 8: K2 over the whole walk ({limit} samples): {out['chunks']} "
+          f"chunks of {out['chunk']}, stitch {out['stitch_steps_mean']:.1f} steps "
+          f"a chunk (largest {out['stitch_steps_max']}, {int(steps.sum())} in all), "
+          f"{out['unmet_chunks']} chunks that never met a speculative walk",
+          flush=True)
+    sweep = {L: cuda_ms(lambda: peaks.lookahead_walk(*args, chunk=L), 3)
+             for L in (4096, 8192, 16384, 32768, 65536)}
+    one = cuda_ms(lambda: peaks.lookahead_walk(*args, chunk=limit), 1)
+    step_ns = one * 1e6 / limit
+    out["chain_bound_ms"] = (out["chunk"] + float(steps.sum())) * step_ns * 1e-6
+    out["chunk_ms"] = {str(L): ms for L, ms in sweep.items()}
+    out["one_walker_ms"] = one
+    print(f"phase 8: K2 by chunk length {json.dumps({L: round(ms, 4) for L, ms in sweep.items()})} "
+          f"ms; one walker over the whole walk {one:.4f} ms ({step_ns:.2f} ns a "
+          f"step), so the chain bound ({out['chunk']} + {int(steps.sum())} steps) "
+          f"{out['chain_bound_ms']:.4f} ms on {card_line()}", flush=True)
+    return out
 
 
 def phase9_afsk_cli(dev) -> None:
@@ -764,10 +797,10 @@ def k3_streams(n: int, seed: int = 0) -> dict:
 
 def k3_compare(pll, kind: str, x: np.ndarray, dev, segments: int = 1) -> dict:
     """K3 against its plain version on the stream x: sequential (one
-    thread) or `segments` segments (one launch, a thread each). Symbol
-    indices, minsync flags and needle choices must be equal; prints the
-    largest phase difference. Times K3 with CUDA events and the plain
-    version with the host clock (one run)."""
+    lane of each stage warp) or `segments` segments (one launch, a lane
+    each). Symbol indices, minsync flags and needle choices must be equal;
+    prints the largest phase difference. Times K3 with CUDA events and the
+    plain version with the host clock (one run)."""
     from directdemod_tpu_torch.models.funcube import FuncubeDecoder
     from directdemod_tpu_torch.models.meteorm2 import MeteorM2Decoder
     from directdemod_tpu_torch.io.sources import ArraySource
@@ -797,6 +830,18 @@ def k3_compare(pll, kind: str, x: np.ndarray, dev, segments: int = 1) -> dict:
     # per symbol: two complex64 samples read (B and A), 14 bytes of outputs,
     # ~100 float32 operations of the step
     bnd = bound(30 * got.count, 100 * got.count)
+    stages = {}
+    if segments == 1:
+        # the measurement build: each stage warp's clocks on its own work;
+        # the longest stage's share of P's wall, times the time, is the
+        # longest chain's time alone
+        cyc = pll.stage_cycles(p, xd, pll.initial_state(p, len(s0), 1, dev), s0, s1)
+        stages = {k: v / got.count for k, v in zip(("P", "C", "M", "wall"), cyc)}
+        stages["chain_bound_ms"] = ms * max(cyc[:3]) / cyc[3]
+        print(f"phase 10 ({kind}): stage clocks a symbol (measurement build) P "
+              f"{stages['P']:.0f}, C {stages['C']:.0f}, M {stages['M']:.0f}, P's wall "
+              f"{stages['wall']:.0f}: the longest chain alone "
+              f"{stages['chain_bound_ms']:.4f} ms", flush=True)
     print(f"phase 10 ({kind}, {segments} segment(s)): K3 over {len(x)} samples, "
           f"{got.count} symbols ({int(got.minsync.sum())} minsync): a_idx, "
           f"minsync, chosen equal to the plain version: {same}; largest phase "
@@ -805,7 +850,7 @@ def k3_compare(pll, kind: str, x: np.ndarray, dev, segments: int = 1) -> dict:
           f"({bnd['bound_by']}) on {card_line()}", flush=True)
     check(same and got.count > 0, f"K3 {kind} equals its plain version")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "symbols": got.count, **bnd}
+            "symbols": got.count, **bnd, **stages}
 
 
 def psk_decode(cls, raw: torch.Tensor, offset: float, dev, label: str, **kw):
@@ -1428,11 +1473,12 @@ def main() -> int:
     from directdemod_tpu_torch.models.frontend import DdcFm
     from directdemod_tpu_torch.ops import _build, ddc, design, peaks, pll
     t0 = time.perf_counter()
-    _build.build_all(["ddc_fm_u8", "ddc_fm_c64", "lookahead_walk", "symbol_scan"])
+    _build.build_all(["ddc_fm_u8", "ddc_fm_c64", "lookahead_walk", "symbol_scan",
+                      ("symbol_scan", pll.STAGE_CLOCK_FLAGS)])
     ddc.build()
     peaks.build()
     pll.build()
-    print(f"phase 2: K1, K4, K2 and K3 built and loaded in "
+    print(f"phase 2: K1, K4, K2 and K3 (and K3's measurement build) built and loaded in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     fe = DdcFm(FS, OFFSET_HZ, design.blackmanharris(151), 60_000)
@@ -1508,8 +1554,12 @@ def main() -> int:
          "launches": fc_k3 + mm_k3,
          "launches_by_path": {"funcube": fc_k3, "meteor": mm_k3},
          "max_abs_err": max(v["max_abs_err"] for v in k3.values()),
-         **{f: k3["bpsk_1"][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         **{f: k3["bpsk_1"][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                          "chain_bound_ms")},
          "library_ms": None,
+         **{f"{kind}_stage_cycles": {k: k3[f"{kind}_1"][k] for k in ("P", "C", "M", "wall")}
+            for kind in ("bpsk", "qpsk")},
+         "qpsk_1_chain_bound_ms": k3["qpsk_1"]["chain_bound_ms"],
          **{f"{key}_{f}": v[f] for key, v in k3.items()
             for f in ("ms", "plain_ms", "symbols", "bound_ms")}}]}))
     print(json.dumps({"ok": True, "device": {

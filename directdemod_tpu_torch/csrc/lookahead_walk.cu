@@ -1,5 +1,6 @@
 // K2: the lookahead peak walk (billauer's alternating max/min detector with
-// lookahead confirmation) over precomputed forward-window extrema.
+// lookahead confirmation) over precomputed forward-window extrema, as a
+// chunk-speculative walk.
 //
 // Replaces the TPU kernel directdemod_tpu/ops/peaks.py::_pk_kernel (wrapper
 // _lookahead_events_pallas) and the lax.scan it stood in for,
@@ -14,105 +15,352 @@
 //     a min fire appends (i, mnpos, mn, 0) and sets mx = mn = -inf.
 //
 // Events go out in index order with their count. With delta >= 0 no fire
-// follows a fire at the next index, so limit / 2 + 2 slots always suffice
-// (the wrapper allocates that many; there is no cap and no overflow).
+// follows a fire at the next index, so limit / 2 + 2 slots always suffice.
 //
-// What bounds it on an H100: every step depends on the state the previous
-// step left, so the walk is one chain of dependent compares and selects on
-// one thread; neither memory bandwidth nor the card's width matters. The
-// design is the simple one: a single block of 256 threads. Warp 0's lane 0
-// walks a tile of y, fmax and fmin held in shared memory, the state in
-// registers, while warps 1-7 stage the next tile into the other half of a
-// double buffer, so the walker never waits on device memory. The TPU kernel's
-// per-chunk event slots and the XLA compaction after it are gone: the one
-// walker appends straight to the global event buffer.
+// What bounds it on an H100: the walk is a recurrence, one chain of
+// dependent compares and selects a sample; on one thread that chain is the
+// whole time (61.6 ns a sample for a one-thread walk on an NVIDIA H100
+// 80GB HBM3 at 700 W). But the chain restarts at
+// every fire, to one of two fixed states: (+inf, +inf) after a max, (-inf,
+// -inf) after a min (a position is stale only while its value is infinite,
+// and then it is never emitted). And the decisions of a step read only the
+// values (mx, mn), never the positions. So two walks over the same samples
+// that fire the same kind of event at the same index, or that hold the same
+// (mx, mn) after the same index, decide alike from there on. Three passes,
+// all on the wrapper's stream:
+//   1. speculative walks: [0, limit) is cut into chunks of L samples; chunk
+//      0 is walked from the true initial state, every other chunk twice,
+//      from the post-max and the post-min state, one thread a walk (the two
+//      walks of a chunk on neighbouring lanes, which read the same lines).
+//      Each writes its events (at most L / 2 + 2) into its own slice of a
+//      scratch buffer, their count, its exit state, and its (mx, mn) after
+//      every Q samples (a checkpoint);
+//   2. stitch, one thread, in chunk order: the true state entering chunk c
+//      is the exit state of chunk c-1's route. If it is a reset state, the
+//      matching walk is chunk c's route from its start. Else the stitch
+//      walks chunk c from it, writing its events straight to the output,
+//      until it fires an event whose index and kind equal an event of one
+//      of the two speculative walks, or until its (mx, mn) equal a walk's
+//      at a checkpoint, bit for bit; from there on that walk is the route
+//      (its later events, its exit state). Where the AFSK edge strength is
+//      exactly zero, between frames, no walk fires, and the checkpoints are
+//      what meets. A chunk where no walk meets is walked to its end: right,
+//      only slower. It records the steps it walked a chunk;
+//   3. gather: every chunk's adopted events are copied to their place in
+//      the output, in parallel. After a checkpoint meeting, an adopted
+//      event whose position the walk set before the meeting takes the true
+//      walk's position there (its value is the same).
+// The step is the sequential walk's step (written without branches), so
+// events equal the plain version's exactly. Time: L steps of one walker (pass 1, in
+// parallel over 2 * limit / L walkers) plus, a chunk, the stitch's steps
+// (at most Q + a few) and its dependent reads of the walks' records.
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 namespace {
 
-constexpr int TILE = 4096;     // samples per staged tile
-constexpr int THREADS = 256;
+constexpr int WALK_THREADS = 32;      // one warp a block: walkers spread over SMs
+constexpr int GATHER_THREADS = 256;
+constexpr int U = 8;                   // samples a walker loads ahead
+constexpr int Q = 32;                  // samples between checkpoints (a multiple of U)
 
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ y,
-                                      const float* __restrict__ fmax,
-                                      const float* __restrict__ fmin,
-                                      long long base, int len, int first, int step) {
-  for (int i = first; i < len; i += step) {
-    dst[i] = y[base + i];
-    dst[TILE + i] = fmax[base + i];
-    dst[2 * TILE + i] = fmin[base + i];
-  }
+struct Walk {
+  float mx, mn;
+  long long mxpos, mnpos;
+};
+
+struct Args {
+  const float* y;
+  const float* fmax;
+  const float* fmin;
+  long long limit, chunk, n_chunks, cap;   // cap: event slots a walk
+  float delta;
+  // pass 1: per walk (2 a chunk) its events, their count and its exit state
+  long long* sp_idx;
+  long long* sp_pos;
+  float* sp_val;
+  uint8_t* sp_max;
+  long long* sp_cnt;
+  float* ex_val;                           // mx, mn
+  long long* ex_pos;                       // mxpos, mnpos
+  float* cp;                               // (mx, mn) every Q samples, cpc a walk
+  long long cpc;
+  // pass 2: per chunk (adopted walk or -1, its first event, output offset,
+  // events, the checkpoint index it met at or -1, the true mxpos and mnpos
+  // there) and the samples the stitch walked
+  long long* rec;
+  long long* steps;
+  long long* ev_idx;
+  long long* ev_pos;
+  float* ev_val;
+  uint8_t* ev_is_max;
+  long long* count;
+};
+
+// One step of the walk at index i, without a branch: 1 for a max fire, 0
+// for a min fire, -1 for none; pos and val get what a fire would emit.
+// isfinite(mx) is mx != +inf here: with mx = -inf the test y < mx - delta
+// already fails (and isfinite(mn) is mn != -inf alike). A max fire wins
+// over a min fire, so the new state is two selects deep: the chain a step
+// is a compare and select for the extreme, the threshold compare and two
+// selects.
+__device__ __forceinline__ int step(Walk& w, float yi, float fx, float fn, long long i,
+                                    float delta, long long& pos, float& val) {
+  const bool up = yi > w.mx, down = yi < w.mn;
+  const float mx = up ? yi : w.mx, mn = down ? yi : w.mn;
+  w.mxpos = up ? i : w.mxpos;
+  w.mnpos = down ? i : w.mnpos;
+  const bool fire_max = (fx < mx) & (mx != CUDART_INF_F) & (yi < mx - delta);
+  const bool fire_min = (fn > mn) & (mn != -CUDART_INF_F) & (yi > mn + delta);
+  pos = fire_max ? w.mxpos : w.mnpos;
+  val = fire_max ? mx : mn;
+  const float kx = fire_min ? -CUDART_INF_F : mx, kn = fire_min ? -CUDART_INF_F : mn;
+  w.mx = fire_max ? CUDART_INF_F : kx;
+  w.mn = fire_max ? CUDART_INF_F : kn;
+  return fire_max ? 1 : (fire_min ? 0 : -1);
 }
 
-__global__ void __launch_bounds__(THREADS)
-lookahead_walk_kernel(const float* __restrict__ y, const float* __restrict__ fmax,
-                      const float* __restrict__ fmin, long long limit, float delta,
-                      long long* __restrict__ ev_idx, long long* __restrict__ ev_pos,
-                      float* __restrict__ ev_val, uint8_t* __restrict__ ev_is_max,
-                      long long* __restrict__ count) {
-  extern __shared__ float smem[];   // two buffers of [y | fmax | fmin] tiles
-  const int tid = threadIdx.x;
-  const long long tiles = (limit + TILE - 1) / TILE;
-  if (tiles > 0) stage(smem, y, fmax, fmin, 0, (int)min((long long)TILE, limit), tid, THREADS);
-  __syncthreads();
+// Write an event at slot k of the four arrays. A walk writes its next slot
+// every step and moves on only where it fired, so a step has no branch.
+__device__ __forceinline__ void put(long long* idx, long long* pos, float* val,
+                                    uint8_t* is_max, long long k, long long i,
+                                    long long p, float v, int kind) {
+  idx[k] = i;
+  pos[k] = p;
+  val[k] = v;
+  is_max[k] = (uint8_t)kind;
+}
 
-  float mx = -CUDART_INF_F, mn = CUDART_INF_F;
-  long long mxpos = 0, mnpos = 0, cnt = 0;
-  for (long long t = 0; t < tiles; ++t) {
-    const float* cur = smem + (t & 1) * 3 * TILE;
-    const long long base = t * TILE;
-    if (tid == 0) {
-      const int len = (int)min((long long)TILE, limit - base);
-      for (int i = 0; i < len; ++i) {
-        const float yi = cur[i];
-        const float fx = cur[TILE + i];
-        const float fn = cur[2 * TILE + i];
-        const long long gi = base + i;
-        if (yi > mx) { mx = yi; mxpos = gi; }
-        if (yi < mn) { mn = yi; mnpos = gi; }
-        const bool fire_max = (yi < mx - delta) && isfinite(mx) && (fx < mx);
-        const bool fire_min = !fire_max && (yi > mn + delta) && isfinite(mn) && (fn > mn);
-        if (fire_max || fire_min) {
-          ev_idx[cnt] = gi;
-          ev_pos[cnt] = fire_max ? mxpos : mnpos;
-          ev_val[cnt] = fire_max ? mx : mn;
-          ev_is_max[cnt] = fire_max ? 1 : 0;
-          ++cnt;
-          mx = mn = fire_max ? CUDART_INF_F : -CUDART_INF_F;
+// Pass 1: walk t covers chunk t / 2; walk 2c starts from the post-max state
+// (chunk 0: the true initial state), walk 2c + 1 from the post-min state.
+__global__ void __launch_bounds__(WALK_THREADS) speculative_walks(Args g) {
+  const long long t = (long long)blockIdx.x * WALK_THREADS + threadIdx.x;
+  if (t >= 2 * g.n_chunks) return;
+  const long long c = t >> 1;
+  const bool post_min = t & 1;
+  if (c == 0 && post_min) {               // chunk 0 needs one walk
+    g.sp_cnt[t] = 0;
+    return;
+  }
+  Walk w;
+  w.mx = c == 0 ? -CUDART_INF_F : (post_min ? -CUDART_INF_F : CUDART_INF_F);
+  w.mn = c == 0 ? CUDART_INF_F : w.mx;
+  w.mxpos = w.mnpos = 0;
+  const long long lo = c * g.chunk, hi = min(g.limit, lo + g.chunk);
+  const long long base = t * g.cap;
+  const float delta = g.delta;
+  long long cnt = 0;
+  // the next U samples are loaded into registers while the current U are
+  // walked; whole groups first, then the ragged end
+  float ya[U], xa[U], na[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (lo + u < hi) { ya[u] = g.y[lo + u]; xa[u] = g.fmax[lo + u]; na[u] = g.fmin[lo + u]; }
+  long long i = lo;
+  for (; i + U <= hi; i += U) {
+    float yb[U], xb[U], nb[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (i + U + u < hi) {
+        yb[u] = g.y[i + U + u]; xb[u] = g.fmax[i + U + u]; nb[u] = g.fmin[i + U + u];
+      }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      long long pos;
+      float val;
+      const int k = step(w, ya[u], xa[u], na[u], i + u, delta, pos, val);
+      put(g.sp_idx, g.sp_pos, g.sp_val, g.sp_max, base + cnt, i + u, pos, val, k);
+      cnt += k >= 0;
+      ya[u] = yb[u]; xa[u] = xb[u]; na[u] = nb[u];
+    }
+    if ((i + U - lo) % Q == 0) {          // checkpoint after index i + U - 1
+      float* cp = g.cp + 2 * (t * g.cpc + (i + U - lo) / Q - 1);
+      cp[0] = w.mx;
+      cp[1] = w.mn;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (i + u < hi) {
+      long long pos;
+      float val;
+      const int k = step(w, ya[u], xa[u], na[u], i + u, delta, pos, val);
+      put(g.sp_idx, g.sp_pos, g.sp_val, g.sp_max, base + cnt, i + u, pos, val, k);
+      cnt += k >= 0;
+    }
+  g.sp_cnt[t] = cnt;
+  g.ex_val[2 * t] = w.mx;
+  g.ex_val[2 * t + 1] = w.mn;
+  g.ex_pos[2 * t] = w.mxpos;
+  g.ex_pos[2 * t + 1] = w.mnpos;
+}
+
+// Pass 2: one thread resolves the chunks in order.
+__global__ void stitch(Args g) {
+  if (threadIdx.x != 0) return;
+  Walk w{-CUDART_INF_F, CUDART_INF_F, 0, 0};
+  const float delta = g.delta;
+  long long out = 0;
+  for (long long c = 0; c < g.n_chunks; ++c) {
+    const long long lo = c * g.chunk, hi = min(g.limit, lo + g.chunk);
+    long long src = -1, from = 0, walked = 0, meet = -1, fix_mx = 0, fix_mn = 0;
+    if (c == 0) src = 0;                  // walk 0 started from the true state
+    else if (w.mx == CUDART_INF_F && w.mn == CUDART_INF_F) src = 2 * c;
+    else if (w.mx == -CUDART_INF_F && w.mn == -CUDART_INF_F) src = 2 * c + 1;
+    else {
+      const long long b0 = 2 * c * g.cap, b1 = b0 + g.cap;
+      const long long n0 = g.sp_cnt[2 * c], n1 = g.sp_cnt[2 * c + 1];
+      long long p0 = 0, p1 = 0;
+      // one step of the stitch; after the meeting step the state is
+      // replaced by the adopted walk's, and nothing more is kept
+      auto visit = [&](long long i, float yi, float fx, float fn) {
+        const bool live = src < 0;
+        long long pos;
+        float val;
+        const int k = step(w, yi, fx, fn, i, delta, pos, val);
+        put(g.ev_idx, g.ev_pos, g.ev_val, g.ev_is_max, out, i, pos, val, k);
+        walked += live;
+        if (live & (k >= 0)) {
+          ++out;
+          while (p0 < n0 && g.sp_idx[b0 + p0] < i) ++p0;
+          while (p1 < n1 && g.sp_idx[b1 + p1] < i) ++p1;
+          if (p0 < n0 && g.sp_idx[b0 + p0] == i && g.sp_max[b0 + p0] == k) {
+            src = 2 * c;
+            from = p0 + 1;
+          } else if (p1 < n1 && g.sp_idx[b1 + p1] == i && g.sp_max[b1 + p1] == k) {
+            src = 2 * c + 1;
+            from = p1 + 1;
+          }
+        }
+      };
+      float ya[U], xa[U], na[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (lo + u < hi) { ya[u] = g.y[lo + u]; xa[u] = g.fmax[lo + u]; na[u] = g.fmin[lo + u]; }
+      long long i0 = lo;
+      for (; i0 + U <= hi && src < 0; i0 += U) {
+        float yb[U], xb[U], nb[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (i0 + U + u < hi) {
+            yb[u] = g.y[i0 + U + u]; xb[u] = g.fmax[i0 + U + u]; nb[u] = g.fmin[i0 + U + u];
+          }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          visit(i0 + u, ya[u], xa[u], na[u]);
+          ya[u] = yb[u]; xa[u] = xb[u]; na[u] = nb[u];
+        }
+        if (src < 0 && (i0 + U - lo) % Q == 0) {
+          // a checkpoint: (mx, mn) equal to a walk's there, bit for bit,
+          // take every later decision as that walk does
+          const long long j = (i0 + U - lo) / Q - 1, m = i0 + U - 1;
+          const unsigned bx = __float_as_uint(w.mx), bn = __float_as_uint(w.mn);
+          const float* c0 = g.cp + 2 * (2 * c * g.cpc + j);
+          const float* c1 = g.cp + 2 * ((2 * c + 1) * g.cpc + j);
+          long long v = -1;
+          if (__float_as_uint(c0[0]) == bx && __float_as_uint(c0[1]) == bn) v = 0;
+          else if (__float_as_uint(c1[0]) == bx && __float_as_uint(c1[1]) == bn) v = 1;
+          if (v >= 0) {
+            long long p = v == 0 ? p0 : p1;
+            const long long b = v == 0 ? b0 : b1, nv = v == 0 ? n0 : n1;
+            while (p < nv && g.sp_idx[b + p] <= m) ++p;
+            src = 2 * c + v;
+            from = p;
+            meet = m;
+            fix_mx = w.mxpos;
+            fix_mn = w.mnpos;
+          }
         }
       }
-    } else if (tid >= 32 && t + 1 < tiles) {
-      const long long next = base + TILE;
-      stage(smem + ((t + 1) & 1) * 3 * TILE, y, fmax, fmin, next,
-            (int)min((long long)TILE, limit - next), tid - 32, THREADS - 32);
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (src < 0 && i0 + u < hi) visit(i0 + u, ya[u], xa[u], na[u]);
     }
-    __syncthreads();
+    long long n = 0;
+    if (src >= 0) {
+      n = g.sp_cnt[src] - from;
+      w.mx = g.ex_val[2 * src];
+      w.mn = g.ex_val[2 * src + 1];
+      // a position the walk set before a checkpoint meeting is the true walk's
+      const long long px = g.ex_pos[2 * src], pn = g.ex_pos[2 * src + 1];
+      w.mxpos = px <= meet ? fix_mx : px;
+      w.mnpos = pn <= meet ? fix_mn : pn;
+    }
+    long long* r = g.rec + 7 * c;
+    r[0] = src;
+    r[1] = from;
+    r[2] = out;
+    r[3] = n;
+    r[4] = meet;
+    r[5] = fix_mx;
+    r[6] = fix_mn;
+    g.steps[c] = walked;
+    out += n;
   }
-  if (tid == 0) *count = cnt;
+  *g.count = out;
+}
+
+// Pass 3: block c copies chunk c's adopted events into the output, giving
+// an event whose position was set before a checkpoint meeting the true
+// walk's position.
+__global__ void __launch_bounds__(GATHER_THREADS) gather(Args g) {
+  const long long* r = g.rec + 7 * (long long)blockIdx.x;
+  const long long src = r[0], n = r[3], meet = r[4];
+  if (src < 0) return;
+  const long long s0 = src * g.cap + r[1], d0 = r[2];
+  for (long long j = threadIdx.x; j < n; j += GATHER_THREADS) {
+    const uint8_t is_max = g.sp_max[s0 + j];
+    const long long pos = g.sp_pos[s0 + j];
+    g.ev_idx[d0 + j] = g.sp_idx[s0 + j];
+    g.ev_pos[d0 + j] = pos <= meet ? (is_max ? r[5] : r[6]) : pos;
+    g.ev_val[d0 + j] = g.sp_val[s0 + j];
+    g.ev_is_max[d0 + j] = is_max;
+  }
 }
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. Returns a cudaError_t (0 = ok).
-// y, fmax, fmin: `limit` float32 each on the device; ev_idx, ev_pos: int64,
-// ev_val: float32, ev_is_max: uint8, each with room for limit / 2 + 2
-// events; count: one int64. Launches on `stream` and does not synchronise.
+// y, fmax, fmin: `limit` float32 each on the device; chunk >= 1 samples a
+// chunk, n_chunks = ceil(limit / chunk), walks = 2 * n_chunks, cap =
+// chunk / 2 + 2; scratch: sp_idx, sp_pos (int64), sp_val (float32), sp_max
+// (uint8), walks * cap each; sp_cnt (int64) walks; ex_val (float32) and
+// ex_pos (int64) 2 * walks each; cp (float32) 2 * walks * max(1, chunk /
+// 32); rec (int64) 7 * n_chunks; steps (int64) n_chunks. Output: ev_idx, ev_pos (int64), ev_val (float32), ev_is_max
+// (uint8), each with room for limit / 2 + 2 events; count: one int64.
+// Launches the three passes on `stream` and does not synchronise.
 extern "C" int lookahead_walk_launch(const void* y, const void* fmax, const void* fmin,
-                                     long long limit, float delta, void* ev_idx,
+                                     long long limit, float delta, long long chunk,
+                                     void* sp_idx, void* sp_pos, void* sp_val,
+                                     void* sp_max, void* sp_cnt, void* ex_val,
+                                     void* ex_pos, void* cp, void* rec, void* steps,
+                                     void* ev_idx,
                                      void* ev_pos, void* ev_val, void* ev_is_max,
                                      void* count, int device, void* stream) {
-  if (limit < 0 || !(delta >= 0.f)) return (int)cudaErrorInvalidValue;
+  if (limit < 0 || chunk < 1 || !(delta >= 0.f)) return (int)cudaErrorInvalidValue;
+  const long long n_chunks = (limit + chunk - 1) / chunk;
+  if (n_chunks > 0x3fffffffLL) return (int)cudaErrorInvalidValue;   // grid sizes
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = sizeof(float) * 2 * 3 * TILE;
-  err = cudaFuncSetAttribute(lookahead_walk_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  Args g{(const float*)y, (const float*)fmax, (const float*)fmin, limit, chunk,
+         n_chunks, chunk / 2 + 2, delta, (long long*)sp_idx, (long long*)sp_pos,
+         (float*)sp_val, (uint8_t*)sp_max, (long long*)sp_cnt, (float*)ex_val,
+         (long long*)ex_pos, (float*)cp, chunk < Q ? 1 : chunk / Q, (long long*)rec,
+         (long long*)steps, (long long*)ev_idx, (long long*)ev_pos, (float*)ev_val, (uint8_t*)ev_is_max, (long long*)count};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_chunks > 0) {
+    const long long blocks = (2 * n_chunks + WALK_THREADS - 1) / WALK_THREADS;
+    speculative_walks<<<(unsigned)blocks, WALK_THREADS, 0, s>>>(g);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  stitch<<<1, 32, 0, s>>>(g);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  lookahead_walk_kernel<<<1, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)y, (const float*)fmax, (const float*)fmin, limit, delta,
-      (long long*)ev_idx, (long long*)ev_pos, (float*)ev_val, (uint8_t*)ev_is_max,
-      (long long*)count);
-  return (int)cudaGetLastError();
+  if (n_chunks > 0) {
+    gather<<<(unsigned)n_chunks, GATHER_THREADS, 0, s>>>(g);
+    err = cudaGetLastError();
+  }
+  return (int)err;
 }

@@ -28,7 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # every fused multiply-add it wants.
 SOURCE_FLAGS = {"symbol_scan": ("-fmad=false",)}
 
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[tuple, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
@@ -41,35 +41,36 @@ def nvcc_path() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
-def flags(name: str) -> tuple:
-    """The nvcc flags of `csrc/<name>.cu`."""
-    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+def flags(name: str, extra: tuple = ()) -> tuple:
+    """The nvcc flags of `csrc/<name>.cu`, with `extra` (a measurement
+    build's -D flags) last."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ()) + tuple(extra)
 
 
-def library_path(name: str) -> str:
-    """Where the build of `csrc/<name>.cu` lives for its current source and
-    the headers beside it (`csrc/*.cuh`)."""
+def library_path(name: str, extra: tuple = ()) -> str:
+    """Where the build of `csrc/<name>.cu` with `extra` flags lives for its
+    current source and the headers beside it (`csrc/*.cuh`)."""
     h = hashlib.sha256()
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
     for fname in [name + ".cu"] + headers:
         with open(os.path.join(CSRC, fname), "rb") as f:
             h.update(f.read())
-    h.update(" ".join(flags(name)).encode())
+    h.update(" ".join(flags(name, extra)).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
-def build(name: str) -> str:
-    """Compile `csrc/<name>.cu` unless a build of this exact source exists;
-    returns the library path. The compiler writes to a temporary file that
-    is renamed into place, so concurrent builds never load a partial
-    library."""
-    out = library_path(name)
+def build(name: str, extra: tuple = ()) -> str:
+    """Compile `csrc/<name>.cu` (with `extra` flags) unless a build of this
+    exact source exists; returns the library path. The compiler writes to a
+    temporary file that is renamed into place, so concurrent builds never
+    load a partial library."""
+    out = library_path(name, extra)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *flags(name), "-o", tmp,
+    cmd = [nvcc_path(), *flags(name, extra), "-o", tmp,
            os.path.join(CSRC, name + ".cu")]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -84,17 +85,20 @@ def build(name: str) -> str:
 
 
 def build_all(names) -> list[str]:
-    """`build` each of `names` with all compilers running at once; returns
-    the library paths (raises the first build failure)."""
-    names = list(names)
-    with ThreadPoolExecutor(max_workers=len(names)) as pool:
-        return list(pool.map(build, names))
+    """`build` each of `names` (a name, or a (name, extra flags) pair) with
+    all compilers running at once; returns the library paths (raises the
+    first build failure)."""
+    jobs = [(n, ()) if isinstance(n, str) else n for n in names]
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        return list(pool.map(lambda job: build(*job), jobs))
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built on first use."""
+def load(name: str, extra: tuple = ()) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu` with `extra` flags, built on
+    first use."""
     with _lock:
-        lib = _libs.get(name)
+        key = (name, tuple(extra))
+        lib = _libs.get(key)
         if lib is None:
-            lib = _libs[name] = ctypes.CDLL(build(name))
+            lib = _libs[key] = ctypes.CDLL(build(name, extra))
         return lib

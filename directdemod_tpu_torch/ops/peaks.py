@@ -12,8 +12,10 @@ its fixed candidate slots were workarounds for its device; `torch.topk` and
 The lookahead part (`lookahead_peaks`, ref peakdetect.py:141-254): the
 forward-window extrema are two stride-1 max pools; the alternating max/min
 walk over them is K2 (`lookahead_walk`), the CUDA kernel
-`csrc/lookahead_walk.cu` for tensors on a CUDA device and its plain version
-`lookahead_walk_plain` for tensors on the CPU; any other device raises, and
+`csrc/lookahead_walk.cu` (a chunk-speculative walk: chunks walked in
+parallel from the two states a fire resets to, stitched in order) for
+tensors on a CUDA device and its plain version `lookahead_walk_plain` (the
+sequential walk) for tensors on the CPU; any other device raises, and
 there is no fallback from the kernel to the plain version. Events are int64
 index tensors sized so that they cannot overflow, so the reference's
 float32 index packing, its event cap and its dense overflow fallback are
@@ -176,6 +178,14 @@ def lookahead_walk_plain(y: torch.Tensor, fmax: torch.Tensor,
             torch.tensor(is_max, dtype=torch.bool, device=dev))
 
 
+# Samples a chunk of K2's speculative walks (`csrc/lookahead_walk.cu`).
+# Pass 1 costs about CHUNK steps of one walker and the stitch a few fires a
+# chunk, so the best length balances the two: chosen on the card by timing
+# the AFSK decode's whole walk at several lengths (PERF.md).
+CHUNK = 16384
+# Samples between the (mx, mn) records of a speculative walk (the kernel's Q).
+_CHECKPOINT = 32
+
 _lib = None
 
 
@@ -184,10 +194,9 @@ def _kernel_lib():
     if _lib is None:
         lib = _build.load("lookahead_walk")
         fn = lib.lookahead_walk_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 3
+                       + [ctypes.c_longlong, ctypes.c_float, ctypes.c_longlong]
+                       + [ctypes.c_void_p] * 15 + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -199,32 +208,61 @@ def build() -> None:
 
 
 def lookahead_walk(y: torch.Tensor, fmax: torch.Tensor, fmin: torch.Tensor,
-                   delta: float) -> tuple[torch.Tensor, ...]:
+                   delta: float, chunk: int | None = None,
+                   stats: dict | None = None) -> tuple[torch.Tensor, ...]:
     """K2 on the tensors' device: the walk over all of `y` (fmax, fmin its
     forward-window extrema at the same indices), the CUDA kernel on a CUDA
     device, the plain version on the CPU. Returns (index int64, position
-    int64, value float32, is_max bool) tensors, one entry per fire."""
+    int64, value float32, is_max bool) tensors, one entry per fire.
+
+    On the card the walk is chunk-speculative, `chunk` samples a chunk
+    (default `CHUNK`); the events do not depend on it. Its scratch holds
+    about 21 bytes a sample. A dict passed as `stats` receives, on the
+    card, "chunk", "chunks", and per chunk "stitch_steps" (the samples the
+    stitch walked) and "met" (whether it met a speculative walk), as device
+    tensors."""
     global LAUNCHES
+    if chunk is not None and int(chunk) < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
     if y.device.type == "cpu":
         return lookahead_walk_plain(y, fmax, fmin, delta)
     if y.device.type != "cuda":
         raise ValueError(f"lookahead_walk runs on cuda or cpu, not {y.device}")
     limit = _check_walk(y, fmax, fmin, delta)
     lib = _kernel_lib()
+    L = max(1, min(int(chunk or CHUNK), limit))
+    n_chunks = -(-limit // L)
+    walks, slots = 2 * n_chunks, 2 * n_chunks * (L // 2 + 2)
+    checkpoints = walks * max(1, L // _CHECKPOINT)
     cap = limit // 2 + 2          # fires never follow fires at the next index
     dev = y.device
-    idx = torch.empty(cap, dtype=torch.int64, device=dev)
-    pos = torch.empty(cap, dtype=torch.int64, device=dev)
-    val = torch.empty(cap, dtype=torch.float32, device=dev)
-    is_max = torch.empty(cap, dtype=torch.bool, device=dev)
-    count = torch.empty(1, dtype=torch.int64, device=dev)
+
+    def empty(n, dtype):
+        return torch.empty(n, dtype=dtype, device=dev)
+    # scratch, in the entry point's order: each walk's events (index,
+    # position, value, kind), their counts, its exit values and positions,
+    # its checkpoints; each chunk's record and the stitch's steps
+    sp = (empty(slots, torch.int64), empty(slots, torch.int64),
+          empty(slots, torch.float32), empty(slots, torch.uint8),
+          empty(walks, torch.int64), empty(2 * walks, torch.float32),
+          empty(2 * walks, torch.int64), empty(2 * checkpoints, torch.float32),
+          empty(7 * n_chunks, torch.int64), empty(n_chunks, torch.int64))
+    idx = empty(cap, torch.int64)
+    pos = empty(cap, torch.int64)
+    val = empty(cap, torch.float32)
+    is_max = empty(cap, torch.bool)
+    count = empty(1, torch.int64)
     err = lib.lookahead_walk_launch(
-        y.data_ptr(), fmax.data_ptr(), fmin.data_ptr(), limit, float(delta),
-        idx.data_ptr(), pos.data_ptr(), val.data_ptr(), is_max.data_ptr(),
-        count.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        y.data_ptr(), fmax.data_ptr(), fmin.data_ptr(), limit, float(delta), L,
+        *(t.data_ptr() for t in sp), idx.data_ptr(), pos.data_ptr(),
+        val.data_ptr(), is_max.data_ptr(), count.data_ptr(), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lookahead_walk kernel launch failed: cudaError_t {err}")
     LAUNCHES += 1
+    if stats is not None:
+        stats.update(chunk=L, chunks=n_chunks, stitch_steps=sp[9],
+                     met=sp[8].view(n_chunks, 7)[:, 0] >= 0)
     k = int(count.item())
     return idx[:k], pos[:k], val[:k], is_max[:k]
 

@@ -12,9 +12,16 @@ hard-decision buffer against the frame sync. For QPSK the minsync result
 feeds back (`last_min` gates the buffer push), so the compare is part of
 the recurrence.
 
+The step is three recurrences that feed one way: P (timing and AGC), C
+(the Costas loop, which needs only P's gained A sample) and M (minsync,
+which needs only the sign bits of C's rotated sample). K3 runs them on
+three warps that hand symbols over in batches; the plain version runs them
+as three passes over a segment (`_stage_p`, `_stage_c`, `_stage_m`), each
+updating its own fields of the state rows. No float operation moves.
+
 `symbol_scan` and `symbol_scan_segments` launch K3, the CUDA kernel
 `csrc/symbol_scan.cu`, for tensors on a CUDA device and run
-`symbol_scan_plain`, a Python loop over float32 scalars, for tensors on the
+`symbol_scan_plain`, Python loops over float32 scalars, for tensors on the
 CPU; any other device raises, and there is no fallback from the kernel to
 the plain version. Both take the same float32 operations in the same order
 as the JAX scan under XLA on the CPU, fused multiply-adds included (XLA
@@ -91,6 +98,10 @@ _TANH_0_7 = (0.0, 0.7615941762924194, 0.9640275835990906, 0.9950547218322754,
              0.9999983310699463)
 TANH_TABLE = tuple(math.copysign(_TANH_0_7[abs(k)] if abs(k) < 8 else 1.0, k)
                    if k else 0.0 for k in range(-128, 128))
+
+# Indices of the step constants (`step_constants`, the kernel's C_*).
+(C_T, C_HALF_T, C_T_2E6, C_ALPHA_U, C_BETA_U, C_ALPHA_L, C_BETA_L, C_GAIN_CAP,
+ C_INV_255, C_INV_40000, C_TWO_PI, C_LOCK_LO) = range(12)
 
 # State layout: float32 row and int64 row per segment.
 (F_TIMING, F_GB_R, F_GB_I, F_GC_R, F_GC_I, F_DC_R, F_DC_I, F_AGC_MEAN,
@@ -197,35 +208,32 @@ def _check_scan(x: torch.Tensor, state: dict, sync, sync1) -> tuple:
     return s0, s1, len(sync)
 
 
-def _scan_segment_plain(c: list, qpsk: bool, gate_syms: int, thresh: float,
-                        xf, n_total: int, start: int, seg_len: int,
-                        fs: list, is_: list, s0: int, s1: int, slen: int,
-                        cap: int, out: tuple, trunc: list) -> None:
-    """One segment of the scan, line for line K3's thread: `fs`/`is_` are
-    this segment's state rows (updated in place), `xf` the stream as
-    interleaved float32 (re, im), read as zero at and beyond `n_total`,
-    `out` four lists the valid symbols are appended to, `trunc` the list
-    that gets whether the step budget `cap` cut the scan short."""
+def _round32():
+    """A function rounding a float64 to the nearest float32 (and back)."""
     A = array("f", [0.0])
 
-    def r(v):                    # round a float64 to the nearest float32
+    def r(v):
         A[0] = v
         return A[0]
+    return r
 
-    T, halfT, tk, al_u, be_u, al_l, be_l, gcap, r255, r40k, two_pi, lock_lo = c
-    lut = TANH_TABLE
-    mask = (1 << slen) - 1
-    half = slen / 2.0
-    ceil, floor, fmod = math.ceil, math.floor, math.fmod
-    cos, sin, sqrt = math.cos, math.sin, math.sqrt
+
+def _stage_p(c: list, xf, n_total: int, start: int, seg_len: int, fs: list,
+             is_: list, cap: int, o_a: list) -> tuple[list, bool]:
+    """Stage P of one segment (timing and AGC), K3's warp P line for line:
+    the B and A sample loads, both AGC updates, Gardner, stage, anchor and
+    the step budget. Appends each symbol's A index to `o_a` and updates its
+    fields of the state rows in place; returns the gained A sample of each
+    symbol, as (re, im) pairs, and whether the budget cut the scan short."""
+    r = _round32()
+    T, halfT, tk, gcap = c[C_T], c[C_HALF_T], c[C_T_2E6], c[C_GAIN_CAP]
+    ceil, sqrt = math.ceil, math.sqrt
     C20, P20, P16 = 1048575.0, 2.0 ** -20, 2.0 ** -16
-    (timing, gbr, gbi, gcr, gci, dcr, dci, mean, phase, freq, pm) = fs
-    stage, anchor, locked, ctr, last_min, fill, chosen = is_[:7]
-    buf = _from_words(is_[I_BUF:I_BUF2])
-    buf2 = _from_words(is_[I_BUF2:N_INT])
-    locked = bool(locked)
-    o_a, o_ph, o_min, o_ch = out
+    timing, gbr, gbi, gcr, gci, dcr, dci, mean = fs[:F_PHASE]
+    stage, anchor = is_[I_STAGE], is_[I_ANCHOR]
+    ga = []
     cnt = 0
+    trunc = False
 
     def sample(idx):
         g = start + max(idx, 0)
@@ -239,16 +247,9 @@ def _scan_segment_plain(c: list, qpsk: bool, gate_syms: int, thresh: float,
         q = r(mi / m)
         return r(m * r(sqrt(r(q * q + 1.0))))
 
-    def hyp(v):                  # quantized tanh, floor(v + 128) indexing
-        if v > 127.0:
-            return 1.0
-        if v < -128.0:
-            return -1.0
-        return lut[min(max(floor(r(v + 128.0)), 0), 255)]
-
     while True:
         if cnt >= cap:           # the step budget: stop where the JAX scan stops
-            trunc.append(anchor + ceil(r(T - timing)) < seg_len)
+            trunc = anchor + ceil(r(T - timing)) < seg_len
             break
         m_b = ceil(r(halfT - timing))
         m_a = ceil(r(T - timing))
@@ -269,9 +270,8 @@ def _scan_segment_plain(c: list, qpsk: bool, gate_syms: int, thresh: float,
         if idx_a >= seg_len:     # A beyond the block: it replays next block
             if b_valid or not at_b:
                 stage = 1
-            trunc.append(False)
             break
-        # A event: AGC, Gardner, Costas, minsync
+        # A event: AGC and Gardner; stages C and M take it from here
         xr, xi = sample(idx_a)
         dcr = r(r(r(dcr * C20) + xr) * P20)
         dci = r(r(r(dci * C20) + xi) * P20)
@@ -283,6 +283,40 @@ def _scan_segment_plain(c: list, qpsk: bool, gate_syms: int, thresh: float,
         gar, gai = r(wr * g), r(wi * g)
         resync = r(r(gai - gci) * gbi)
         timing = r(r(r(timing + m_a) - T) + resync * tk)
+        ga.append((gar, gai))
+        o_a.append(start + idx_a)
+        cnt += 1
+        stage = 0
+        anchor = idx_a
+        gcr, gci = gar, gai
+    fs[:F_PHASE] = [timing, gbr, gbi, gcr, gci, dcr, dci, mean]
+    is_[I_STAGE], is_[I_ANCHOR] = stage, anchor
+    return ga, trunc
+
+
+def _stage_c(c: list, qpsk: bool, ga: list, fs: list, is_: list,
+             o_ph: list) -> list:
+    """Stage C of one segment (the Costas loop), K3's warp C line for line,
+    over the gained A samples `ga` of stage P. Appends each symbol's phase
+    to `o_ph` and updates its fields of the state rows in place; returns
+    each symbol's sign bits (re > 0) << 1 | (im > 0)."""
+    r = _round32()
+    al_u, be_u, al_l, be_l = c[C_ALPHA_U:C_GAIN_CAP]
+    r255, r40k, two_pi, lock_lo = c[C_INV_255:]
+    lut = TANH_TABLE
+    floor, fmod, cos, sin = math.floor, math.fmod, math.cos, math.sin
+    phase, freq, pm = fs[F_PHASE:]
+    locked = bool(is_[I_LOCKED])
+    bits = []
+
+    def hyp(v):                  # quantized tanh, floor(v + 128) indexing
+        if v > 127.0:
+            return 1.0
+        if v < -128.0:
+            return -1.0
+        return lut[min(max(floor(r(v + 128.0)), 0), 255)]
+
+    for gar, gai in ga:
         cr = r(cos(phase))
         sr = -r(sin(phase))
         re = r(gar * cr - r(gai * sr))
@@ -295,7 +329,7 @@ def _scan_segment_plain(c: list, qpsk: bool, gate_syms: int, thresh: float,
         ec = min(max(err, -1.0), 1.0)
         al, be = (al_l, be_l) if locked else (al_u, be_u)
         raw = r(r(phase + freq) + al * ec)
-        ph_out = phase
+        o_ph.append(phase)
         phase = (fmod(-raw, two_pi) * -1.0 if raw < 0.0
                  else fmod(raw, two_pi) if raw > 0.0 else 0.0)
         freq = r(freq + be * ec)
@@ -303,9 +337,26 @@ def _scan_segment_plain(c: list, qpsk: bool, gate_syms: int, thresh: float,
             locked = True
         elif locked and pm > 0.5:
             locked = False
+        bits.append((2 if re > 0.0 else 0) | (1 if im > 0.0 else 0))
+    fs[F_PHASE:] = [phase, freq, pm]
+    is_[I_LOCKED] = int(locked)
+    return bits
+
+
+def _stage_m(qpsk: bool, gate_syms: int, thresh: float, bits: list,
+             is_: list, s0: int, s1: int, slen: int, o_min: list,
+             o_ch: list) -> None:
+    """Stage M of one segment (minsync), K3's warp M line for line, over
+    the sign bits of stage C. Appends each symbol's minsync flag and needle
+    choice and updates its fields of the state rows in place."""
+    mask = (1 << slen) - 1
+    half = slen / 2.0
+    ctr, last_min, fill, chosen = is_[I_CTR:I_BUF]
+    buf = _from_words(is_[I_BUF:I_BUF2])
+    buf2 = _from_words(is_[I_BUF2:N_INT])
+    for b in bits:
+        bre, bim = b >> 1, b & 1
         ctr += 1
-        bre = 1 if re > 0.0 else 0
-        bim = 1 if im > 0.0 else 0
         if qpsk:
             gate = last_min < 0 or ctr > last_min + gate_syms
             is_min = False
@@ -324,17 +375,9 @@ def _scan_segment_plain(c: list, qpsk: bool, gate_syms: int, thresh: float,
             is_min = fill >= slen and abs((buf ^ s0).bit_count() - half) > thresh
         if is_min:
             last_min = ctr
-        o_a.append(start + idx_a)
-        o_ph.append(ph_out)
         o_min.append(is_min)
         o_ch.append(chosen)
-        cnt += 1
-        stage = 0
-        anchor = idx_a
-        gcr, gci = gar, gai
-    fs[:] = [timing, gbr, gbi, gcr, gci, dcr, dci, mean, phase, freq, pm]
-    is_[:] = ([stage, anchor, int(locked), ctr, last_min, fill, chosen]
-              + _to_words(buf) + _to_words(buf2))
+    is_[I_CTR:] = [ctr, last_min, fill, chosen] + _to_words(buf) + _to_words(buf2)
 
 
 def _scan_plain(p: PskParams, x: torch.Tensor, state: dict, sync, sync1,
@@ -351,12 +394,14 @@ def _scan_plain(p: PskParams, x: torch.Tensor, state: dict, sync, sync1,
     out = ([], [], [], [])
     counts, trunc = [], []
     for k, start in enumerate(starts):
-        before = len(out[0])
-        _scan_segment_plain(c, p.qpsk, int(0.1 * p.sym_rate),
-                            float(p.minsync_thresh), xf, n_total, int(start),
-                            int(seg_len), fs_all[k], is_all[k], s0, s1, slen,
-                            cap, out, trunc)
-        counts.append(len(out[0]) - before)
+        fs, is_ = fs_all[k], is_all[k]
+        ga, cut = _stage_p(c, xf, n_total, int(start), int(seg_len), fs, is_,
+                           cap, out[0])
+        bits = _stage_c(c, p.qpsk, ga, fs, is_, out[1])
+        _stage_m(p.qpsk, int(0.1 * p.sym_rate), float(p.minsync_thresh), bits,
+                 is_, s0, s1, slen, out[2], out[3])
+        counts.append(len(ga))
+        trunc.append(cut)
     dev = x.device
     new = {"f": torch.tensor(fs_all, dtype=torch.float32, device=dev),
            "i": torch.tensor(is_all, dtype=torch.int64, device=dev)}
@@ -378,13 +423,16 @@ def symbol_scan_plain(p: PskParams, x: torch.Tensor, state: dict, sync,
     return new, syms
 
 
-_lib = None
+_libs: dict = {}
+# The measurement build of K3: each stage warp sums the SM clocks of its
+# work (`stage_cycles`).
+STAGE_CLOCK_FLAGS = ("-DK3_STAGE_CLOCKS",)
 
 
-def _kernel_lib():
-    global _lib
-    if _lib is None:
-        lib = _build.load("symbol_scan")
+def _kernel_lib(extra: tuple = ()):
+    lib = _libs.get(extra)
+    if lib is None:
+        lib = _build.load("symbol_scan", extra)
         fn = lib.symbol_scan_launch
         fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
@@ -395,8 +443,8 @@ def _kernel_lib():
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _libs[extra] = lib
+    return lib
 
 
 def build() -> None:
@@ -404,21 +452,38 @@ def build() -> None:
     _kernel_lib()
 
 
+def stage_cycles(p: PskParams, x: torch.Tensor, state: dict, sync, sync1
+                 ) -> list[int]:
+    """One sequential scan of the CUDA tensor x through K3's measurement
+    build: the SM clocks that warps P, C and M spent on their stages' work
+    (waits excluded), and P's wall from its first batch to its end. A
+    stage's clocks over the symbols is its chain a symbol, alone."""
+    lib = _kernel_lib(STAGE_CLOCK_FLAGS)
+    _scan(p, x, state, sync, sync1, [0], int(x.shape[0]), lib=lib)
+    torch.cuda.synchronize(x.device)
+    out = (ctypes.c_ulonglong * 4)()
+    err = lib.symbol_scan_stage_cycles(out)
+    if err != 0:
+        raise RuntimeError(f"symbol_scan_stage_cycles failed: cudaError_t {err}")
+    return list(out)
+
+
 def _scan(p: PskParams, x: torch.Tensor, state: dict, sync, sync1,
-          starts: list, seg_len: int) -> tuple[dict, Symbols, list, list]:
+          starts: list, seg_len: int, lib=None) -> tuple[dict, Symbols, list, list]:
     """The scan of each segment k over x[starts[k] : starts[k] + seg_len]
     (zero beyond the end of x) from state row k, at most `max_symbols(p,
     seg_len)` steps: K3 on a CUDA device, the plain version on the CPU.
     Returns (new state, the valid symbols of all segments in segment order
     with indices in x's coordinates, the count of each segment, whether the
-    step budget stopped each segment with samples left)."""
+    step budget stopped each segment with samples left). `lib`: another
+    build of K3 (`stage_cycles`)."""
     global LAUNCHES
     if x.device.type == "cpu":
         return _scan_plain(p, x, state, sync, sync1, starts, seg_len)
     if x.device.type != "cuda":
         raise ValueError(f"symbol_scan runs on cuda or cpu, not {x.device}")
     s0, s1, slen = _check_scan(x, state, sync, sync1)
-    lib = _kernel_lib()
+    lib = lib or _kernel_lib()
     dev = x.device
     n_seg = len(starts)
     cap = max_symbols(p, seg_len)
@@ -505,8 +570,8 @@ def symbol_scan_segments(p: PskParams, x: torch.Tensor, sync, sync1,
     """Independent scans of overlapping segments of x (the segment-parallel
     mode; exact sequential mode is `symbol_scan`), each from the initial
     state over `seg_len` samples from its `scan_from`, zero beyond the end
-    of x (`_segments_core`'s padding). On a card this is one K3 launch with
-    one thread per segment. Returns (the valid symbols of all segments in
+    of x (`_segments_core`'s padding). On a card this is one K3 launch, a
+    segment on one lane of each of its three stage warps. Returns (the valid symbols of all segments in
     segment order, indices in x's coordinates; the segment of each symbol
     (int64); the `owned` mask, true where the A sample lies in the segment's
     owned span)."""

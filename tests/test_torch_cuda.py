@@ -22,7 +22,9 @@ decodes on the card and on the CPU to the bars of tests/test_torch_noaa.py
 accurate syncs within +/-1 sample), and AFSK decodes frame for frame. K3
 and its plain version take the same float32 operations (cos and sin from
 the double-precision functions on both sides), so symbol indices, minsync
-flags and needle choices must be equal and phases agree to 1e-6 rad; PSK
+flags and needle choices must be equal and phases agree to 1e-6 rad (the
+tests of the stage split, segments over blocks and the carried state hold
+state rows and phases equal bit for bit); PSK
 decodes on the card and the CPU must give the same syncs within 2 samples
 (their low-pass filters sum in another order), Meteor's from its second
 reported sync on."""
@@ -275,6 +277,38 @@ def test_walk_kernel_matches_plain(dev, n, lookahead, delta):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("chunk", [1, 7, 1000, 4097, 65536, 10 ** 6])
+def test_walk_kernel_chunks_match_plain(dev, chunk):
+    """The chunk-speculative walk at chunk lengths from 1 to more than the
+    walk, most of which do not divide it (limit 100,000)."""
+    y = stress_edges(100_011, 17, dev)
+    args = _walk_args(y, 11)
+    stats = {}
+    got = peaks.lookahead_walk(*args, 0.0, chunk=chunk, stats=stats)
+    want = peaks.lookahead_walk_plain(*args, 0.0)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    n_chunks = -(-100_000 // min(chunk, 100_000))
+    assert stats["chunks"] == n_chunks == stats["stitch_steps"].shape[0]
+    assert int(stats["stitch_steps"].max()) <= stats["chunk"]
+    assert bool(stats["met"][0])
+
+
+@pytest.mark.parametrize("chunk", [256, 16384])
+def test_walk_kernel_on_afsk_edges(dev, chunk):
+    """The AFSK decode's own edge strength (exact zeros between frames,
+    where no walk fires and the stitch walks on)."""
+    raw, _ = synth_aprs_bytes(8.0, dev, seed=4)
+    edges = Afsk1200Decoder(sources.DeviceRawSource(raw, FS), APRS_OFFSET_HZ,
+                            device=dev)._edges()[1]
+    args = _walk_args(edges, 11)
+    got = peaks.lookahead_walk(*args, 0.0, chunk=chunk)
+    want = peaks.lookahead_walk_plain(*args, 0.0)
+    assert got[0].shape[0] > 1000
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 def test_walk_kernel_densest_walk(dev):
     """A fire every other sample fills the limit // 2 + 2 event buffer as
     far as any input can."""
@@ -490,3 +524,66 @@ def test_meteor_decode_on_the_card_matches_cpu(dev):
     assert out["cuda"][1] == out["cpu"][1] == 1
     assert len(out["cuda"][0]) == len(out["cpu"][0]) >= len(starts) - 2
     assert np.max(np.abs(np.subtract(out["cuda"][0][1:], out["cpu"][0][1:]))) <= 2
+
+
+def _same_scan(got, want):
+    """Two `pll._scan` results, bit for bit: state rows, symbols, counts,
+    truncation flags."""
+    (st_k, sy_k, cnt_k, tr_k), (st_p, sy_p, cnt_p, tr_p) = got, want
+    assert cnt_k == cnt_p and tr_k == tr_p
+    assert torch.equal(st_k["f"].cpu(), st_p["f"]) and torch.equal(st_k["i"].cpu(), st_p["i"])
+    for a, b in zip(sy_k, sy_p):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("segments", [33, 64])
+@pytest.mark.parametrize("kind", ["bpsk", "qpsk"])
+def test_scan_kernel_segments_over_blocks(dev, kind, segments):
+    """More segments than one block of lanes serves: segment 0 scans the
+    whole stream (QPSK: up to the step budget, truncated), the others from
+    staggered starts into the zeros beyond it, the last from an anchor past
+    its end (no symbol at all); counts that are no multiple of the batch."""
+    x = torch.from_numpy(k3_streams(300_000, seed=6)[kind])
+    p, s0, s1 = _psk(kind)
+    starts = [(k * 7919) % 150_000 for k in range(segments)]
+    state = pll.initial_state(p, len(s0), segments, "cpu")
+    state["i"][segments - 1, pll.I_ANCHOR] = 300_010
+    before = pll.LAUNCHES
+    got = pll._scan(p, x.to(dev), {k: v.to(dev) for k, v in state.items()},
+                    s0, s1, starts, 300_000)
+    assert pll.LAUNCHES == before + 1
+    want = pll._scan(p, x, state, s0, s1, starts, 300_000)
+    _same_scan(got, want)
+    counts = want[2]
+    assert counts[-1] == 0 and min(counts[:-1]) > 0
+    assert any(c % 64 for c in counts[:-1])
+    assert want[3][0] == (kind == "qpsk")
+
+
+@pytest.mark.parametrize("kind", ["bpsk", "qpsk"])
+def test_scan_kernel_state_over_two_blocks(dev, kind):
+    """A scan in two blocks, the state carried on the card: after each
+    block the state rows and the symbols equal the plain version's, bit
+    for bit."""
+    x = torch.from_numpy(k3_streams(400_000, seed=5)[kind])
+    p, s0, s1 = _psk(kind)
+    split = 200_003
+    st_k = pll.initial_state(p, len(s0), 1, dev)
+    st_p = pll.initial_state(p, len(s0), 1, "cpu")
+    for lo, hi in ((0, split), (split, 400_000)):
+        got = pll._scan(p, x[lo:hi].to(dev), st_k, s0, s1, [0], hi - lo)
+        want = pll._scan(p, x[lo:hi], st_p, s0, s1, [0], hi - lo)
+        _same_scan(got, want)
+        assert want[2][0] > 0
+        st_k, st_p = got[0], want[0]
+        st_k["i"][:, pll.I_ANCHOR] -= hi - lo
+        st_p["i"][:, pll.I_ANCHOR] -= hi - lo
+
+
+def test_scan_kernel_stage_clocks(dev):
+    """The measurement build gives the same symbols and nonzero clocks for
+    each stage warp."""
+    x = torch.from_numpy(k3_streams(200_000, seed=3)["bpsk"]).to(dev)
+    p, s0, s1 = _psk("bpsk")
+    cyc = pll.stage_cycles(p, x, pll.initial_state(p, len(s0), 1, dev), s0, s1)
+    assert all(c > 0 for c in cyc) and max(cyc[:2]) <= cyc[3]
