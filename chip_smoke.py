@@ -265,6 +265,18 @@ def cuda_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+def plan_line(ddc, kind: str, channels: int, K: int, J: int, out_len: int,
+              dev) -> str:
+    """What a K1 (kind "u8") or K4 ("c64") launch chooses on the card: its
+    threads a block, resident blocks an SM, passes, staged layout and
+    blocks (each walks tiles of T - 1 outputs)."""
+    p = ddc.launch_plan("ddc_fm_u8" if kind == "u8" else "ddc_fm_c64", channels, K,
+                        J, out_len, dev.index or 0)
+    return (f"T {p['T']}, {p['blocks_per_sm']} resident blocks an SM, {p['passes']} "
+            f"pass(es) of {p['S']} samples a tile, skew {'on' if p['skew'] else 'off'} "
+            f"(L {p['L']}), {p['smem']} B shared a block, {p['grid']} blocks")
+
+
 def wrapped(d: torch.Tensor) -> torch.Tensor:
     """|angle(exp(1j d))| of a phase difference, in fp64."""
     d = d.double()
@@ -317,6 +329,7 @@ def k1_compare(ddc, fe, dev, raw: torch.Tensor, label: str) -> dict:
           f"c_last err {c_last_err:.3e} of |c| {c_last_scale:.3e}, "
           f"c_last kernel vs plain {abs(complex((c_k - c_p).cpu()[0])):.3e}",
           flush=True)
+    print(f"{label}: K1 launch: {plan_line(ddc, 'u8', 1, K, J, out_len, dev)}", flush=True)
     check(err_p999 < PLAIN_P999_TOL and err_max < PLAIN_MAX_TOL,
           f"K1 vs plain p99.9 {err_p999} max {err_max}")
     check(oracle_err < ORACLE_TOL, f"K1 vs fp64 oracle {oracle_err}")
@@ -457,7 +470,7 @@ def phase5_cli(dev) -> None:
     _, ch, files, wall = run_cli(raw, name, ["-c", "137590000", "-f", "137620000",
                                              "-d", "noaa", "-sync"])
     stem = name.split(".")[0]
-    for f in (stem + "_f1.png", stem + "_f1.csv"):
+    for f in (stem + "_f1.png", stem + "_f1.csv", "log.txt"):
         check(f in files, f"{f} written")
     check(ch["usefulness"] == 1 and ch["device"].startswith("cuda"), f"report {ch}")
     print(f"phase 5: CLI rc 0 in {wall:.1f} s, decodeSeconds "
@@ -1142,6 +1155,8 @@ def ddc_compare(ddc, kind: str, x: torch.Tensor, samples, fe, c_prev,
           f"out_len {out_len}: vs plain max {err_max:.3e} p99.9 {err_p999:.3e}, vs "
           f"fp64 oracle max {oracle_err:.3e}, c_last vs c[out_len-1] "
           f"{c_last_rel:.3e} of max |c|", flush=True)
+    print(f"{label}: {'K1' if kind == 'u8' else 'K4'} launch: "
+          f"{plan_line(ddc, kind, chans, K, J, out_len, x.device)}", flush=True)
     check(err_p999 < PLAIN_P999_TOL and err_max < PLAIN_MAX_TOL,
           f"{label} vs plain p99.9 {err_p999} max {err_max}")
     check(oracle_err < (2e-4 if kind == "c64" else ORACLE_TOL),
@@ -1459,6 +1474,46 @@ def phase17_bank(ddc, dev, seconds: float = 600.0) -> tuple[int, dict]:
         check(all(abs(p - 2400.0) < 20 for p in peaks), f"APT subcarrier {peaks}")
         check(launches == blocks, f"K1 launches {launches}, blocks {blocks}")
     return launches, k1_bank
+
+
+def k1k4_times(label: str = "k1k4") -> dict:
+    """K1 and K4 alone on the main shapes, for iterating on their tile
+    without the decodes: phase 3's and phase 6's K1 compares (J = 34 and
+    92), phase 14 (K4 at J = 34, 68, ragged, 3 channels, J = 409 with K1)
+    and phase 17's three-channel K1 compare on a 21-second bank capture.
+    Each against its plain version and the fp64 oracle, with the launch
+    plan and the times; returns the kernel-table numbers by shape and
+    prints them as one JSON line. Run it on the card as
+    `python3 -c "import chip_smoke as s; s.k1k4_times()"`."""
+    from directdemod_tpu_torch.models.frontend import DdcFm
+    from directdemod_tpu_torch.models.multichannel import MultiDdcFm
+    from directdemod_tpu_torch.ops import ddc, design, resample as rs
+    check(torch.cuda.is_available(), "a CUDA device")
+    dev = torch.device("cuda", 0)
+    print(card_line(), flush=True)
+    ddc.build()
+    taps = design.blackmanharris(151)
+    raw, _ = synth_pass_bytes(80, dev, seed=1)
+    out = {"k1_34": k1_compare(ddc, DdcFm(FS, OFFSET_HZ, taps, 60_000), dev, raw,
+                               f"{label} phase 3")}
+    raw, _ = synth_aprs_bytes(41.0, dev, seed=1)
+    out["k1_92"] = k1_compare(ddc, DdcFm(FS, APRS_OFFSET_HZ, taps, 22_050), dev, raw,
+                              f"{label} phase 6")
+    del raw
+    out.update({f"k4_{k}": v for k, v in phase14_k4(ddc, dev).items()})
+    raw = synth_noaa_bank_bytes(21.0, dev)
+    bank = MultiDdcFm(FS, NOAA_BANK_HZ, taps, 60_000)
+    blk, J, K = 20_000_000, bank.stride, bank.ntaps
+    off = rs.decim_phase(blk, J)
+    seg = raw[2 * (blk - (K - 1) + off): 2 * 2 * blk]
+    cp = torch.tensor([1.0 + 0.5j] * 3, dtype=torch.complex64, device=dev)
+    out["k1_3ch"] = ddc_compare(ddc, "u8", seg, u8_samples(seg), bank, cp,
+                                rs.decim_count(blk, off, J), f"{label} phase 17 (K1, 3 ch)",
+                                reps=10, head=K - 1 - off)
+    print(json.dumps({label: {k: {f: v.get(f) for f in ("ms", "plain_ms", "library_ms",
+                                                       "bound_ms", "max_abs_err")}
+                              for k, v in out.items()}}), flush=True)
+    return out
 
 
 def main() -> int:

@@ -8,8 +8,12 @@ name), the same per-channel fence and the same JSON report (`-r`), with
 `decodeSeconds`, `resident` and the `device` the channel ran on. The decode
 runs on the current CUDA device; `main(argv, device="cpu")` runs it on the
 CPU (the JAX CLI has no device flag, so neither has this one), and without a
-CUDA device `main` raises unless it is given one. Decoders and flags the
-port does not have yet exit non-zero with "not yet ported".
+CUDA device `main` raises unless it is given one. As in the JAX CLI, the
+log goes to `log.txt` in the working directory (DEBUG) and to the console
+(INFO), and an unknown decoder ends the run with "Invalid decoder selected"
+and exit code 1 once the channels before it are decoded, writing no report.
+The flags the port does not have yet (`--map`, `--tle`, `--mesh`) exit
+non-zero with "not yet ported".
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from time import gmtime, perf_counter, strftime
 from . import constants
 from .device import resolve
 from .io import sinks, sources
+from .utils import logsetup
 
 NOT_PORTED_FLAGS = ("--map", "--tle", "--mesh")
 
@@ -62,8 +67,7 @@ Decoder flags:
 
 def main(argv=None, device=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(levelname)s %(message)s")
+    logsetup.setup("log.txt", console=True)
 
     try:
         optlist, args = getopt.getopt(
@@ -109,10 +113,6 @@ def main(argv=None, device=None) -> int:
         return 1
     if max(len(starts), len(ends), len(outs), len(bandwidths)) > len(freqs):
         usage("number of starts/ends/outfilenames cannot be greater than frequencies given")
-        return 1
-    other = sorted(set(decoders) - {"noaa", "afsk1200", "funcube", "meteor"})
-    if other:
-        usage(f"decoder {', '.join(other)}: not yet ported")
         return 1
     for lst in (starts, ends, outs, bandwidths):
         lst.extend([None] * (len(freqs) - len(lst)))
@@ -214,7 +214,7 @@ def main(argv=None, device=None) -> int:
                 print(dec.get_msg())
                 entry["usefulness"] = dec.useful
 
-            else:   # funcube, meteor
+            elif decoders[i] in ("funcube", "meteor"):
                 if decoders[i] == "funcube":
                     from .models.funcube import FuncubeDecoder
                     dec = FuncubeDecoder(src_i, freq_offset, bandwidths[i],
@@ -234,12 +234,16 @@ def main(argv=None, device=None) -> int:
                 sinks.write_csv(csv_file, [syncs], titles=[title])
                 entry["filesCreated"].append(csv_file)
                 entry["usefulness"] = dec.useful
+            else:
+                usage("Invalid decoder selected")
+                return 1
 
             entry["decodeSeconds"] = round(perf_counter() - t_dec, 3)
             report["channels"].append(entry)
         except Exception as e:  # per-channel fence (ref main.py:347-349)
-            logging.exception("An error occurred during decoding of frequency "
-                              "%d of %d: %s", i + 1, len(freqs), e)
+            logging.error("An error occurred during decoding of frequency %d of %d",
+                          i + 1, len(freqs))
+            logging.error("The error is: %s", e)
 
     if report_file is not None:
         with open(report_file, "w") as f:

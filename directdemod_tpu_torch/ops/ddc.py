@@ -24,7 +24,9 @@ its history in front of a block without copying the block.
 `ddc_fm_u8` and `ddc_fm_c64` launch the CUDA kernels `csrc/ddc_fm_u8.cu`
 and `csrc/ddc_fm_c64.cu` for tensors on a CUDA device and run their plain
 versions for tensors on the CPU; any other device raises. There is no
-fallback from a kernel to its plain version.
+fallback from a kernel to its plain version. `launch_plan` reports what a
+launch chooses on the card (threads a block, passes, the skewed layout,
+resident blocks an SM, blocks).
 """
 from __future__ import annotations
 
@@ -176,6 +178,31 @@ def _kernel_fn(name: str):
         fn.restype = ctypes.c_int
         _libs[name] = fn
     return fn
+
+
+PLAN_FIELDS = ("T", "S", "skew", "L", "smem", "passes", "blocks_per_sm", "grid")
+
+
+def launch_plan(name: str, channels: int, ntaps: int, stride: int, out_len: int,
+                device: int = 0) -> dict:
+    """What kernel `name` ("ddc_fm_u8" or "ddc_fm_c64") chooses for a launch
+    of `channels` channels of `ntaps` taps at `stride` over `out_len`
+    outputs on CUDA device `device`: threads a block T, span samples a pass
+    S, the skewed layout (skew, 1 or 0), tap positions a channel L, shared
+    bytes a block (smem), passes a tile, resident blocks an SM and blocks
+    (grid; each walks tiles of T - 1 new outputs), as `PLAN_FIELDS` keys."""
+    fn = _libs.get(name + "_plan")
+    if fn is None:
+        fn = getattr(_build.load(name), name + "_plan")
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+        fn.restype = ctypes.c_int
+        _libs[name + "_plan"] = fn
+    out = (ctypes.c_longlong * len(PLAN_FIELDS))()
+    err = fn(int(channels), int(ntaps), int(stride), int(out_len), int(device), out)
+    if err != 0:
+        raise RuntimeError(f"{name} launch plan failed: cudaError_t {err}")
+    return dict(zip(PLAN_FIELDS, out))
 
 
 def build() -> None:

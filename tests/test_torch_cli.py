@@ -6,7 +6,9 @@ of pixels, accurate syncs within +/-1 sample, see tests/test_torch_noaa.py
 for why; the same APRS payload; the same PSK sync CSV)."""
 import functools
 import json
+import logging
 import os
+import re
 import subprocess
 import sys
 
@@ -28,6 +30,22 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NAME = "SDRSharp_20170830_073907Z_137590000Hz_IQ.wav"
 # the port's CLI on the CPU: without a CUDA device `cli.main` must be told
 main_cpu = functools.partial(cli.main, device="cpu")
+# one line of the log's format, "%(asctime)s - %(name)s - %(levelname)s - %(message)s"
+LOG_LINE = re.compile(r"^\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3} - (\S+) - "
+                      r"(DEBUG|INFO|WARNING|ERROR|CRITICAL) - (.*)$")
+
+
+@pytest.fixture(autouse=True)
+def _own_log(tmp_path, monkeypatch):
+    """Both CLIs add a `log.txt` file handler and a console handler to the
+    root logger on every run: each test runs in its own directory and takes
+    away the handlers it added."""
+    monkeypatch.chdir(tmp_path)
+    root = logging.getLogger()
+    before, level = list(root.handlers), root.level
+    yield
+    _drop_handlers(before)
+    root.setLevel(level)
 
 
 @pytest.fixture(scope="module")
@@ -251,3 +269,67 @@ def test_cli_psk_matches_jax_cli(tmp_path, monkeypatch, decoder, extra, name,
         rows = {k: v.splitlines() for k, v in csvs.items()}
         assert rows["port"][0] == rows["jax"][0] == "Meteor syncs,"
         assert set(rows["jax"][1:]) <= set(rows["port"][1:]) and len(rows["jax"]) > 2
+
+
+def _log_records(path):
+    """(logger, level, message) of each record in a log file; fails on a
+    line outside the format (continuation lines of a traceback aside)."""
+    recs = []
+    for line in open(path).read().splitlines():
+        m = LOG_LINE.match(line)
+        assert m or not recs or line.startswith((" ", "Traceback")), line
+        if m:
+            recs.append(m.groups())
+    return recs
+
+
+def _drop_handlers(before):
+    root = logging.getLogger()
+    for h in root.handlers[:]:
+        if h not in before:
+            root.removeHandler(h)
+            h.close()
+
+
+def test_cli_writes_log_txt_like_jax_cli(noaa_wav, tmp_path, monkeypatch, capsys):
+    """Each CLI writes log.txt into its working directory through the same
+    setup: the file takes DEBUG and up and the console INFO and up, both in
+    the JAX format, and the two CLIs log the same records (logger names
+    aside)."""
+    recs, before = {}, list(logging.getLogger().handlers)
+    for name, main, pkg in (("port", main_cpu, "directdemod_tpu_torch"),
+                            ("jax", jcli.main, "directdemod_tpu")):
+        os.mkdir(tmp_path / name)
+        monkeypatch.chdir(tmp_path / name)
+        capsys.readouterr()
+        assert main(["-c", "137590000", "-f", "137620000", "-d", "noaa",
+                     "-noimage", noaa_wav]) == 0
+        logging.getLogger(pkg + ".models").debug("after the run")
+        err = capsys.readouterr().err
+        _drop_handlers(before)
+        assert "Beginning decoding of frequency 1 of 1" in err
+        assert "after the run" not in err
+        recs[name] = [(n.replace(pkg, "pkg"), level, msg)
+                      for n, level, msg in _log_records(tmp_path / name / "log.txt")]
+    assert recs["port"] == recs["jax"]
+    assert recs["port"][0] == ("root", "INFO", "Beginning decoding of frequency 1 of 1")
+    assert recs["port"][-1] == ("pkg.models", "DEBUG", "after the run")
+
+
+def test_cli_unknown_decoder_like_jax_cli(noaa_wav, tmp_path, monkeypatch, capsys):
+    """A second channel with an unknown decoder: both CLIs decode the first
+    channel and write its files, then print "Invalid decoder selected" and
+    exit 1 without writing the report."""
+    files, before = {}, list(logging.getLogger().handlers)
+    for name, main in (("port", main_cpu), ("jax", jcli.main)):
+        os.mkdir(tmp_path / name)
+        monkeypatch.chdir(tmp_path / name)
+        capsys.readouterr()
+        rc = main(["-c", "137590000", "-f", "137620000", "-d", "noaa",
+                   "-o", "first", "-f", "137640000", "-d", "goes",
+                   "-r", "rep.json", noaa_wav])
+        assert rc == 1, name
+        assert "Invalid decoder selected" in capsys.readouterr().out, name
+        files[name] = sorted(os.listdir(tmp_path / name))
+        _drop_handlers(before)
+    assert files["port"] == files["jax"] == ["first.png", "log.txt"]

@@ -224,6 +224,116 @@ def test_kernel_reads_a_head_in_place(dev, kind, n_head):
     assert torch.equal(whole[0], split[0]) and torch.equal(whole[1], split[1])
 
 
+def _tile_model():
+    """tests/test_torch_tile_model.py, the CPU model of the tile's plan."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "tile_model", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                   "test_torch_tile_model.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _bank_j(j, freqs=(30000,)):
+    """`_bank` at the bandwidth whose stride is j."""
+    m, taps_rev, rot, cp = _bank(FS / (j + 0.5), freqs)
+    assert m.stride == j
+    return m, taps_rev, rot, cp
+
+
+@pytest.mark.parametrize("kind", ["u8", "c64"])
+@pytest.mark.parametrize("j", [33, 34, 68, 92, 409, 1022, 1023])
+def test_tile_layouts_match_plain_and_oracle(dev, kind, j):
+    """Odd J stages packed, even J skewed (a pad after every J samples and a
+    zero tap at each); above J ~935 both in passes (of whole rows when
+    skewed): every layout against the plain version (fp32 bars) and the
+    fp64 oracle (< 2e-4 rad), on two channels and a ragged out_len; the plan
+    the kernel reports is the one `tests/test_torch_tile_model.py` models."""
+    m, taps_rev, rot, cp = _bank_j(j, (30000, -70000))
+    k, out_len = m.ntaps, 3001
+    plan = ddc.launch_plan("ddc_fm_" + kind, 2, k, j, out_len)
+    props = torch.cuda.get_device_properties(0)
+    model = _tile_model()
+    assert tuple(plan[f] for f in ("T", "S", "skew", "L", "smem", "passes")) == \
+        model.tile_plan(2, k, j, out_len, props.shared_memory_per_block_optin)
+    tiles = -(-out_len // (plan["T"] - 1))
+    assert plan["grid"] == min(tiles, plan["blocks_per_sm"] * props.multi_processor_count)
+    assert plan["skew"] == (j % 2 == 0) and plan["blocks_per_sm"] >= 1
+    assert (plan["passes"] > 1) == (j > 1000)
+    x, fn, plain = _bank_input(kind, (out_len - 1) * j + k, j)
+    a_k, c_k = fn(x, taps_rev, rot, cp, j, out_len)
+    a_p, _ = plain(x, taps_rev, rot, cp, j, out_len)
+    torch.cuda.synchronize()
+    _phase_close(a_k.cpu(), a_p.cpu())
+    xs = _as_samples(kind, x)
+    for ch in range(2):
+        ref, c = _oracle(xs, taps_rev[ch], rot[ch:ch + 1], cp[ch:ch + 1], j, out_len)
+        d = np.abs(np.angle(np.exp(1j * (a_k[ch].cpu().numpy() - ref))))
+        assert d.max() < 2e-4
+        assert abs(complex(c_k.cpu()[ch]) - c[-1]) < 5e-6 * np.abs(c).max()
+
+
+@pytest.mark.parametrize("kind", ["u8", "c64"])
+@pytest.mark.parametrize("j", [34, 68, 92])
+def test_persistent_grid_over_ragged_tiles(dev, kind, j):
+    """A grid smaller than the tile count (each block walks several tiles)
+    and an out_len that is not a whole number of tiles: against the plain
+    version and the fp64 oracle, c_last included, and bit for bit with the
+    history read in place."""
+    m, taps_rev, rot, cp = _bank_j(j, (30000, -70000))
+    k, out_len = m.ntaps, 200_003
+    plan = ddc.launch_plan("ddc_fm_" + kind, 2, k, j, out_len)
+    assert plan["grid"] < -(-out_len // (plan["T"] - 1)) and out_len % (plan["T"] - 1)
+    x, fn, plain = _bank_input(kind, (out_len - 1) * j + k, 7 * j)
+    a_k, c_k = fn(x, taps_rev, rot, cp, j, out_len)
+    a_p, _ = plain(x, taps_rev, rot, cp, j, out_len)
+    cut = 150 * (2 if kind == "u8" else 1)
+    split = fn(x[cut:].clone(), taps_rev, rot, cp, j, out_len, head=x[:cut].clone())
+    torch.cuda.synchronize()
+    assert torch.equal(a_k, split[0]) and torch.equal(c_k, split[1])
+    _phase_close(a_k.cpu(), a_p.cpu())
+    xs = _as_samples(kind, x)
+    for ch in range(2):
+        ref, c = _oracle(xs, taps_rev[ch], rot[ch:ch + 1], cp[ch:ch + 1], j, out_len)
+        d = np.abs(np.angle(np.exp(1j * (a_k[ch].cpu().numpy() - ref))))
+        assert d.max() < 2e-4
+        assert abs(complex(c_k.cpu()[ch]) - c[-1]) < 5e-6 * np.abs(c).max()
+
+
+@pytest.mark.parametrize("kind", ["u8", "c64"])
+@pytest.mark.parametrize("channels", [1, 2, 3, 4, 5])
+def test_each_channel_count_equals_single_channels_bit_for_bit(dev, kind, channels):
+    """C <= 4 keeps the channels' sums in registers inside the tap loop, C = 5
+    loops over the channels outside it: either way each channel equals its
+    one-channel launch bit for bit, skewed (J = 34) and packed (J = 33)."""
+    freqs = (120_000, 412_500, -400_000, 30000, -70000)[:channels]
+    for j in (34, 33):
+        m, taps_rev, rot, cp = _bank_j(j, freqs)
+        out_len = 20_011
+        x, fn, _ = _bank_input(kind, (out_len - 1) * j + m.ntaps, channels)
+        audio, c_last = fn(x, taps_rev, rot, cp, j, out_len)
+        assert audio.shape == (channels, out_len)
+        for ch in range(channels):
+            a1, c1 = fn(x, taps_rev[ch].contiguous(), rot[ch:ch + 1].contiguous(),
+                        cp[ch:ch + 1].contiguous(), j, out_len)
+            assert torch.equal(audio[ch], a1) and torch.equal(c_last[ch:ch + 1], c1)
+
+
+@pytest.mark.parametrize("kind", ["u8", "c64"])
+@pytest.mark.parametrize("j", [68, 92, 1024])
+def test_skewed_kernel_reads_a_head_in_place(dev, kind, j):
+    """At even J, one pass and in passes: [head | x] through two pointers
+    equals the launch over the concatenated samples bit for bit."""
+    m, taps_rev, rot, cp = _bank_j(j, (30000, -70000))
+    k, out_len, n_head = m.ntaps, 4001, 150
+    x, fn, _ = _bank_input(kind, (out_len - 1) * j + k, j)
+    cut = n_head * (2 if kind == "u8" else 1)
+    whole = fn(x, taps_rev, rot, cp, j, out_len)
+    split = fn(x[cut:].clone(), taps_rev, rot, cp, j, out_len, head=x[:cut].clone())
+    assert torch.equal(whole[0], split[0]) and torch.equal(whole[1], split[1])
+
+
 def test_complex_front_ends_on_the_card_match_cpu(dev):
     """FmDecoder, Stream.run_fused and a complex MultiDdcFm on the card: one
     K4 launch a block, and the CPU's outputs within the fp32 bars."""

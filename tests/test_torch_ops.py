@@ -4,6 +4,9 @@ Both sides compute in float32 / complex64 (the JAX suite runs with x64 on,
 so dtypes are passed explicitly). Tolerances are relative to the output's
 scale and sized for float32 sums of the lengths involved; the host-side
 NumPy copies (`design`, the peak grouping) must agree exactly."""
+import inspect
+import logging
+
 import numpy as np
 import pytest
 import torch
@@ -19,11 +22,13 @@ from directdemod_tpu.ops import iir as jiir
 from directdemod_tpu.ops import peaks as jpeaks
 from directdemod_tpu.ops import resample as jrs
 from directdemod_tpu.ops import unpack as junpack
+from directdemod_tpu.utils import logsetup as jlogsetup
 from directdemod_tpu_torch import constants
 from directdemod_tpu_torch.models.apt import median
 from directdemod_tpu_torch.ops import am, correlate, design, fir, fm, iir, peaks
 from directdemod_tpu_torch.ops import resample as rs
 from directdemod_tpu_torch.ops import unpack
+from directdemod_tpu_torch.utils import logsetup
 
 torch.set_num_threads(1)
 
@@ -45,6 +50,29 @@ def test_constants_equal_the_reference():
     assert len(names) == 29
     for name in names:
         assert getattr(constants, name) == getattr(jconstants, name), name
+
+
+def test_logsetup_copy_equals_the_reference(tmp_path):
+    """The same root handlers, levels and format; the code differs only in
+    its docstring and in naming torch among the noisy loggers."""
+    body = [inspect.getsource(m.setup).replace('"jax", "jax._src"', '"torch"')
+            for m in (logsetup, jlogsetup)]
+    assert body[0] == body[1]
+    root = logging.getLogger()
+    before, level = list(root.handlers), root.level
+    got = []
+    for m in (logsetup, jlogsetup):
+        m.setup(str(tmp_path / "log.txt"), console=True)
+        added = [h for h in root.handlers if h not in before]
+        got.append([(type(h).__name__, h.level, h.formatter._fmt) for h in added]
+                   + [root.level])
+        for h in added:
+            root.removeHandler(h)
+            h.close()
+    root.setLevel(level)
+    assert got[0] == got[1]
+    assert got[0][0] == ("FileHandler", logging.DEBUG,
+                         "%(asctime)s - %(name)s - %(levelname)s - %(message)s")
 
 
 def test_design_copies_are_exact():
