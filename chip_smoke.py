@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Drives the port's decode paths, NOAA APT, AFSK1200/APRS, Funcube BPSK,
-Meteor-M2 QPSK and FM, the chainable Stream API and the one-pass
-multichannel front end, on the card and fails (non-zero exit, no result
+Meteor-M2 QPSK and FM, the chainable Stream API, the one-pass multichannel
+front end and the single-process device mesh, on the card and fails (non-zero exit, no result
 line) on any error. Phases, in order:
 
 1. check that a CUDA device exists and print its name and power limit;
@@ -71,9 +71,25 @@ line) on any error. Phases, in order:
     K1 launch a block for the three channels, each equal bit for bit to
     the one-channel front end at its offset, timed against three
     one-channel runs;
-18. print the kernel table as one JSON line (time, plain time, bound and
-    library-call time, launches on each path), then the result line
-    {"ok": true, "device": {...}} last.
+18-24. the mesh (`directdemod_tpu_torch.parallel`), every shard naming
+    this card: (a) ShardedDdcFm over phase 4's capture on 4 `time` shards,
+    every output bit for bit DdcFm.process's at the same blocks, and one
+    sharded K1 launch (a block with its halo as the head) against its plain
+    version and the fp64 oracle, timed; (b) Stream.run_sharded against
+    run_fused on phase 16's capture (K4), bit for bit; (c) NoaaDecoder with
+    a 4-shard mesh on phase 4's capture, cold and warm, against the
+    unsharded decode (crude syncs equal, >= 99 % of pixels, accurate syncs
+    within a sample); (d) MultiDdcFm on a 1 x 3 `channel` mesh over phase
+    17's capture, bit for bit the unsharded bank; (e) Funcube (phase 11's
+    first 64 s) and Meteor (phase 12's capture) with 32 segments on a
+    4-shard mesh against the same decodes without one: syncs equal, K3's
+    symbols bit for bit; (f) `parallel.dryrun(4)`; then the NOAA CLI with
+    --map, with --map --tle=tle/noaa18_synthetic.txt (no pyorbital here:
+    the error is logged, the image written, no map) and with --mesh=2,
+    which exits non-zero with the mesh's device-count message;
+25. print the kernel table as one JSON line (time, plain time, bound and
+    library-call time, launches on each path, the mesh paths among them),
+    then the result line {"ok": true, "device": {...}} last.
 
 Imports nothing of JAX.
 """
@@ -351,12 +367,12 @@ def k1_compare(ddc, fe, dev, raw: torch.Tensor, label: str) -> dict:
             **bnd}
 
 
-def phase4_decode(ddc, fe, dev) -> int:
+def phase4_decode(ddc, fe, dev) -> tuple[int, torch.Tensor]:
     """Synthesize a 10-minute pass on the card and decode it from the bytes
     held there, twice: a cold run (first use of cuFFT plans, cuDNN and the
     allocator in this process) and a warm one. Then hold K1 against its
     plain version at the shape the decode gave it. Returns the warm run's
-    K1 launch count."""
+    K1 launch count and the capture (for the mesh phases)."""
     from directdemod_tpu_torch import constants
     from directdemod_tpu_torch.io.sources import DeviceRawSource
     from directdemod_tpu_torch.models.noaa import NoaaDecoder
@@ -427,7 +443,7 @@ def phase4_decode(ddc, fe, dev) -> int:
           f"on {card_line()}", flush=True)
     check(err_p999 < PLAIN_P999_TOL and err_max < PLAIN_MAX_TOL,
           f"K1 vs plain p99.9 {err_p999} max {err_max}")
-    return launches
+    return launches, raw
 
 
 def write_iq_wav(path: str, raw: np.ndarray) -> None:
@@ -441,11 +457,14 @@ def write_iq_wav(path: str, raw: np.ndarray) -> None:
         f.write(raw.tobytes())
 
 
-def run_cli(raw: torch.Tensor, name: str, args: list):
+def run_cli(raw: torch.Tensor, name: str, args: list, log_has: str | None = None,
+            expect_ok: bool = True):
     """Write `raw` as the IQ.wav `name` into a temporary directory and run
     the port's CLI there on it with `args` and `-r rep.json`. Fails unless
-    it exits 0; returns (stdout, the report's first channel, the files the
-    run left, wall seconds)."""
+    it exits 0 (and its log.txt holds `log_has`); returns (stdout, the
+    report's first channel, the files the run left, wall seconds). With
+    `expect_ok` false it fails unless the CLI exits non-zero, and returns
+    its standard error."""
     root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as tmp:
         write_iq_wav(os.path.join(tmp, name), raw.cpu().numpy())
@@ -457,7 +476,13 @@ def run_cli(raw: torch.Tensor, name: str, args: list):
             cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
         wall = time.perf_counter() - t0
         sys.stderr.write(proc.stderr[-4000:])
+        if not expect_ok:
+            check(proc.returncode != 0, "the CLI exits non-zero")
+            return proc.stderr
         check(proc.returncode == 0, f"CLI exit code {proc.returncode}")
+        if log_has is not None:
+            with open(os.path.join(tmp, "log.txt")) as f:
+                check(log_has in f.read(), f"log.txt holds {log_has!r}")
         with open(os.path.join(tmp, "rep.json")) as f:
             ch = json.load(f)["channels"][0]
         return proc.stdout, ch, set(os.listdir(tmp)), wall
@@ -890,13 +915,14 @@ def psk_decode(cls, raw: torch.Tensor, offset: float, dev, label: str, **kw):
     return syncs, dec, wall, launches
 
 
-def phase11_funcube(dev) -> int:
+def phase11_funcube(dev) -> tuple[int, torch.Tensor]:
     """A 10-minute Funcube capture synthesized on the card and decoded from
     the bytes held there, sequential, cold and then warm (the block loop,
     K3 once a block with the state carried); every planted frame after the
     first must come back at FC_SYNC_DELAY. Then the first 60 s with 32
     segments on the whole-capture path against the sequential decode of
-    the same 60 s. Returns the warm run's K3 launch count."""
+    the same 60 s. Returns the warm run's K3 launch count and the capture's
+    first 64 s (for the mesh phase)."""
     from directdemod_tpu_torch.models.funcube import FuncubeDecoder
     t0 = time.perf_counter()
     raw, starts = synth_funcube_bytes(600.0, dev, seed=0)
@@ -913,6 +939,7 @@ def phase11_funcube(dev) -> int:
               f"+{FC_SYNC_DELAY} +- {FC_SYNC_TOL}, {len(syncs)} syncs")
         check(launches > 0, "the decode launched K3")
     head = raw[: 2 * 60 * FS]
+    head64 = raw[: 2 * 64 * FS]
     seq, _, _, _ = psk_decode(FuncubeDecoder, head, FC_OFFSET_HZ, dev,
                               "phase 11 (first 60 s, sequential)")
     par, pdec, _, plaunch = psk_decode(FuncubeDecoder, head, FC_OFFSET_HZ, dev,
@@ -923,14 +950,14 @@ def phase11_funcube(dev) -> int:
           f"largest distance {far:.1f} samples", flush=True)
     check(pdec.useful == 1 and len(par) == len(seq) > 0 and far < 0.01 * FS
           and plaunch == 1, "segmented 60 s agrees with sequential")
-    return launches
+    return launches, head64
 
 
-def phase12_meteor(dev) -> int:
+def phase12_meteor(dev) -> tuple[int, torch.Tensor]:
     """A 2-minute Meteor capture (8.64 M symbols) synthesized on the card
     and decoded sequentially, cold and warm: useful and >= 95 % of the
     planted frames at MM_SYNC_DELAY. Then 32 segments against it. Returns
-    the warm run's K3 launch count."""
+    the warm run's K3 launch count and the capture."""
     from directdemod_tpu_torch.models.meteorm2 import MeteorM2Decoder
     raw, starts = synth_meteor_bytes(120.0, dev, seed=1)
     print(f"phase 12: synthesized {raw.shape[0] // 2} samples, {len(starts)} "
@@ -953,7 +980,7 @@ def phase12_meteor(dev) -> int:
     # miss frames near its edges (docs/experiments.md D13)
     check(pdec.useful == 1 and got_par >= 0.5 * len(starts),
           f"segmented: {got_par} of {len(starts)} frames")
-    return launches
+    return launches, raw
 
 
 def phase13_psk_cli(dev) -> None:
@@ -1414,7 +1441,7 @@ def synth_noaa_bank_bytes(seconds: float, device, seed: int = 7,
     return out
 
 
-def phase17_bank(ddc, dev, seconds: float = 600.0) -> tuple[int, dict]:
+def phase17_bank(ddc, dev, seconds: float = 600.0) -> tuple[int, dict, torch.Tensor]:
     """MultiDdcFm over a 10-minute uint8 capture holding NOAA-15, -18 and -19
     (2.46 GB on the card, a DeviceRawSource). First K1 with the bank's three
     channels (J = 34) against its plain version and the fp64 oracle on the
@@ -1424,7 +1451,7 @@ def phase17_bank(ddc, dev, seconds: float = 600.0) -> tuple[int, dict]:
     one-channel front end at its offset (the kernel's channel loop keeps
     each output's arithmetic), each carrying the 2,400 Hz APT subcarrier;
     wall time against three one-channel runs. Returns the bank's K1 launch
-    count and the three-channel K1 comparison."""
+    count, the three-channel K1 comparison and the capture."""
     from directdemod_tpu_torch import constants
     from directdemod_tpu_torch.io.sources import DeviceRawSource
     from directdemod_tpu_torch.models.frontend import DdcFm
@@ -1473,7 +1500,270 @@ def phase17_bank(ddc, dev, seconds: float = 600.0) -> tuple[int, dict]:
         check(same and bank.shape[0] == 3, "bank channels equal the one-channel streams")
         check(all(abs(p - 2400.0) < 20 for p in peaks), f"APT subcarrier {peaks}")
         check(launches == blocks, f"K1 launches {launches}, blocks {blocks}")
-    return launches, k1_bank
+    return launches, k1_bank, raw
+
+
+# ------------------------------------------------------------- mesh slice
+MESH_SHARDS = 4                 # one card named four times (three for the bank)
+
+
+def card_mesh(dev, time: int = MESH_SHARDS, channel: int = 1):
+    """A (time, channel) mesh whose every shard names the card: the shards
+    run one after the other on it."""
+    from directdemod_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(time=time, channel=channel, devices=[dev] * (time * channel))
+
+
+def bit_diff(got: np.ndarray, ref: np.ndarray) -> tuple[int, float]:
+    """(outputs whose bits differ, largest difference) of two equal-shape
+    float arrays."""
+    check(got.shape == ref.shape, f"shapes {got.shape} vs {ref.shape}")
+    diff = got.view(np.uint32) != ref.view(np.uint32)
+    return int(diff.sum()), float(np.abs(got.astype(np.float64) - ref).max(initial=0.0))
+
+
+def phase18_sharded_bytes(ddc, fe, dev, raw: torch.Tensor) -> tuple[int, dict]:
+    """(a) ShardedDdcFm over phase 4's 10-minute capture held on the card (a
+    DeviceRawSource, its blocks sliced there) on a 4-shard `time` mesh,
+    against DdcFm.process at the same 20,000,000-sample blocks: each shard
+    runs K1 over its block with the previous block's last K-1+J samples as
+    `head=`, one output more in front, so every output is the sequential
+    stream's bit for bit. Then one such sharded K1 launch (the second block,
+    its halo as the head) against its plain version and the fp64 oracle,
+    timed. Returns the sharded run's K1 launches and that comparison."""
+    from directdemod_tpu_torch import constants
+    from directdemod_tpu_torch.io.sources import DeviceRawSource
+    from directdemod_tpu_torch.ops import resample as rs
+    from directdemod_tpu_torch.parallel.sharded import ShardedDdcFm
+    src = DeviceRawSource(raw, FS)
+    blk = constants.PROC_CHUNKSIZE
+    t0 = time.perf_counter()
+    ref, _ = fe.process(src, blk, device=dev)
+    t_seq = time.perf_counter() - t0
+    sharded = ShardedDdcFm(fe, card_mesh(dev))
+    ddc.LAUNCHES = 0
+    t0 = time.perf_counter()
+    got, _ = sharded.process(src, blk)
+    t_sh = time.perf_counter() - t0
+    launches = ddc.LAUNCHES
+    n_diff, err = bit_diff(got, ref)
+    print(f"phase 18 (a): ShardedDdcFm over {src.length} samples of bytes on the "
+          f"card, {MESH_SHARDS} shards x {blk}-sample blocks: {launches} K1 "
+          f"launches, {len(got)} outputs, {n_diff} not bit-equal to DdcFm.process "
+          f"(largest difference {err:.3e}); wall {t_sh:.3f} s sharded, {t_seq:.3f} s "
+          f"sequential on {card_line()}", flush=True)
+    check(n_diff == 0, f"sharded front end over bytes: {n_diff} outputs differ")
+    check(launches >= len(range(0, src.length, blk)), f"K1 launches {launches}")
+    J, K = fe.stride, fe.ntaps
+    off = rs.decim_phase(blk, J)
+    halo = sharded.halo
+    seg = torch.cat([raw[2 * (blk - halo): 2 * blk].clone()[2 * off:],
+                     raw[2 * blk: 4 * blk]])
+    cp = torch.tensor([1.0 + 0.5j], dtype=torch.complex64, device=dev)
+    k1 = ddc_compare(ddc, "u8", seg, u8_samples(seg), fe, cp,
+                     rs.decim_count(blk, off, J) + 1, "phase 18 (a) (one sharded K1 launch)",
+                     reps=10, plain_reps=2, head=halo - off)
+    del seg
+    k1["wall_s"], k1["seq_wall_s"] = t_sh, t_seq
+    return launches, k1
+
+
+def phase19_run_sharded(ddc, dev, seconds: float = 120.0) -> int:
+    """(b) Stream.run_sharded on a 4-shard mesh against run_fused, tutorial
+    3's chain over phase 16's 2-minute complex64 FM capture (host): K4 a
+    block, every output bit for bit. Returns run_sharded's K4 launches."""
+    from directdemod_tpu_torch.io.sources import ArraySource
+    from directdemod_tpu_torch.ops import filters
+    from directdemod_tpu_torch.stream.api import Stream
+    x = synth_fm(int(seconds * FS), dev, seed=6)
+    chain = (Stream(ArraySource(x, FS), device=dev).shift(FM_OFFSET_HZ)
+             .filter(filters.blackman_harris(151)).bw_limit(60_000).fm_demod())
+    t0 = time.perf_counter()
+    ref, rate = chain.run_fused()
+    t_fused = time.perf_counter() - t0
+    ddc.LAUNCHES_C64 = 0
+    t0 = time.perf_counter()
+    got, rate2 = chain.run_sharded(card_mesh(dev))
+    t_sh = time.perf_counter() - t0
+    launches = ddc.LAUNCHES_C64
+    n_diff, err = bit_diff(got, ref)
+    print(f"phase 19 (b): run_sharded over {len(x)} complex64 samples, "
+          f"{MESH_SHARDS} shards: {launches} K4 launches, {n_diff} of {len(got)} "
+          f"outputs not bit-equal to run_fused (largest difference {err:.3e}); wall "
+          f"{t_sh:.3f} s, run_fused {t_fused:.3f} s on {card_line()}", flush=True)
+    check(rate == rate2 and n_diff == 0, f"run_sharded vs run_fused: {n_diff} differ")
+    check(launches == -(-len(x) // 20_000_000), f"K4 launches {launches}")
+    return launches
+
+
+def phase20_noaa_mesh(ddc, dev, raw: torch.Tensor) -> tuple[int, dict]:
+    """(c) NoaaDecoder(mesh=) on phase 4's 10-minute capture, a 4-shard mesh,
+    cold and then warm, against the unsharded decode: usefulness 1, crude
+    syncs equal, >= 99 % of image pixels equal and the accurate syncs
+    within one sample (D12). Returns the warm run's K1 launches and its
+    stage seconds and wall."""
+    from directdemod_tpu_torch.io.sources import DeviceRawSource
+    from directdemod_tpu_torch.models.noaa import NoaaDecoder
+    src = DeviceRawSource(raw, FS)
+    seq = NoaaDecoder(src, OFFSET_HZ, device=dev)
+    t0 = time.perf_counter()
+    s_crude, s_img = seq.get_crude_sync(), seq.get_image()
+    s_acc = seq.get_accurate_sync(use_norm_correlate=True)
+    t_seq = time.perf_counter() - t0
+    mesh = card_mesh(dev)
+    for run in ("cold", "warm"):
+        dec = NoaaDecoder(src, OFFSET_HZ, device=dev, mesh=mesh)
+        ddc.LAUNCHES = 0
+        t0 = time.perf_counter()
+        useful = dec.useful
+        crude = dec.get_crude_sync()
+        img = dec.get_image()
+        acc = dec.get_accurate_sync(use_norm_correlate=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ddc.LAUNCHES
+        same_crude = all(np.array_equal(a, b) for a, b in zip(crude, s_crude))
+        px = float(np.mean(img == s_img)) if img.shape == s_img.shape else 0.0
+        acc_d = [int(np.max(np.abs(np.subtract(acc[c], s_acc[c])), initial=0))
+                 if len(acc[c]) == len(s_acc[c]) else -1 for c in (0, 4)]
+        stages = {k: round(v, 4) for k, v in dec.stage_seconds.items()}
+        print(f"phase 20 (c) ({run}): NoaaDecoder on {MESH_SHARDS} shards, "
+              f"{src.length / FS:.1f} s pass in {wall:.3f} s wall (unsharded "
+              f"{t_seq:.3f} s), stages {json.dumps(stages)}, useful {useful}, "
+              f"crude syncs equal {same_crude}, image {img.shape} {100 * px:.3f} % "
+              f"of pixels equal, accurate syncs A/B within {acc_d} samples, K1 "
+              f"launches {launches} on {card_line()}", flush=True)
+        check(useful == 1 and same_crude, "mesh decode: useful, crude syncs equal")
+        check(px >= 0.99, f"mesh decode image {px}")
+        check(min(acc_d) >= 0 and max(acc_d) <= 1, f"accurate syncs {acc_d}")
+        check(launches > 0, "the mesh decode launched K1")
+    return launches, {"wall_s": wall, "seq_wall_s": t_seq, "stages": stages}
+
+
+def phase21_bank_mesh(ddc, dev, raw: torch.Tensor) -> int:
+    """(d) MultiDdcFm over phase 17's NOAA-15/18/19 capture on a 1 x 3
+    `channel` mesh of the card (a one-channel bank a shard, K1 a block on
+    each), each channel bit for bit the unsharded bank's. Returns its K1
+    launches."""
+    from directdemod_tpu_torch.io.sources import DeviceRawSource
+    from directdemod_tpu_torch.models.multichannel import MultiDdcFm
+    from directdemod_tpu_torch.ops import design
+    src = DeviceRawSource(raw, FS)
+    taps = design.blackmanharris(151)
+    t0 = time.perf_counter()
+    ref, _ = MultiDdcFm(FS, NOAA_BANK_HZ, taps, 60_000).process(src, device=dev)
+    t_bank = time.perf_counter() - t0
+    ddc.LAUNCHES = 0
+    t0 = time.perf_counter()
+    got, _ = MultiDdcFm(FS, NOAA_BANK_HZ, taps, 60_000,
+                        mesh=card_mesh(dev, time=1, channel=3)).process(src)
+    t_mesh = time.perf_counter() - t0
+    launches = ddc.LAUNCHES
+    n_diff, err = bit_diff(got, ref)
+    blocks = -(-src.length // 20_000_000)
+    print(f"phase 21 (d): MultiDdcFm on a 1 x 3 channel mesh, {launches} K1 "
+          f"launches for {blocks} blocks, {n_diff} outputs not bit-equal to the "
+          f"unsharded bank (largest difference {err:.3e}); wall {t_mesh:.3f} s, "
+          f"unsharded {t_bank:.3f} s on {card_line()}", flush=True)
+    check(n_diff == 0, f"channel mesh bank: {n_diff} outputs differ")
+    check(launches == 3 * blocks, f"K1 launches {launches}")
+    return launches
+
+
+class ScanRecorder:
+    """Within `with`, keeps on the host what every `pll.symbol_scan_segments`
+    call returns (the symbols, their segments, the owned mask)."""
+
+    def __enter__(self):
+        from directdemod_tpu_torch.ops import pll
+        self.pll, self.orig, self.calls = pll, pll.symbol_scan_segments, []
+
+        def record(*a, **kw):
+            out = self.orig(*a, **kw)
+            self.calls.append([t.cpu() for t in out[0]] + [out[1].cpu(), out[2].cpu()])
+            return out
+        pll.symbol_scan_segments = record
+        return self
+
+    def __exit__(self, *exc):
+        self.pll.symbol_scan_segments = self.orig
+
+
+def phase22_psk_mesh(dev, fc_raw: torch.Tensor, mm_raw: torch.Tensor
+                     ) -> tuple[int, int]:
+    """(e) Funcube on phase 11's first 64 s and Meteor on phase 12's
+    2-minute capture, 32 segments, with a 4-shard mesh and without one (both
+    above the whole-capture limit, so both take the block loop): the same
+    syncs, and K3's symbols of every block bit for bit (one K3 launch a
+    shard over its 8 segments, against one over all 32). Returns the mesh
+    decodes' K3 launches."""
+    from directdemod_tpu_torch.models.funcube import FuncubeDecoder
+    from directdemod_tpu_torch.models.meteorm2 import MeteorM2Decoder
+    out = []
+    for name, cls, raw, off in (("funcube", FuncubeDecoder, fc_raw, FC_OFFSET_HZ),
+                                ("meteor", MeteorM2Decoder, mm_raw, MM_OFFSET_HZ)):
+        runs = {}
+        for label, mesh in (("no mesh", None), ("mesh", card_mesh(dev))):
+            with ScanRecorder() as rec:
+                syncs, dec, wall, launches = psk_decode(
+                    cls, raw, off, dev, f"phase 22 (e) ({name}, 32 segments, {label})",
+                    n_segments=32, mesh=mesh)
+            runs[label] = (syncs, dec.useful, rec.calls, launches, wall)
+        (s0, u0, c0, l0, _), (s1, u1, c1, l1, _) = runs["no mesh"], runs["mesh"]
+        same = len(c0) == len(c1) and all(
+            len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+            for a, b in zip(c0, c1))
+        n_sym = sum(int(c[0].shape[0]) for c in c1)
+        print(f"phase 22 (e) ({name}): syncs equal {s0 == s1} ({len(s1)}), K3 symbols "
+              f"of {len(c1)} blocks ({n_sym} symbols) bit for bit {same}; K3 launches "
+              f"{l1} on the mesh, {l0} without", flush=True)
+        check(s0 == s1 and u0 == u1 == 1 and same, f"{name} on a mesh")
+        check(l1 == MESH_SHARDS * l0, f"{name} K3 launches {l1} vs {l0}")
+        out.append(l1)
+    return out[0], out[1]
+
+
+def phase23_dryrun(ddc, pll, dev) -> dict:
+    """(f) parallel.dryrun(4) on four shards that name the card: every
+    check passes. Returns its result with its K4 and K3 launches."""
+    from directdemod_tpu_torch.parallel.dryrun import dryrun
+    ddc.LAUNCHES_C64, pll.LAUNCHES = 0, 0
+    t0 = time.perf_counter()
+    res = dryrun(MESH_SHARDS, device=dev)
+    res["wall_s"] = time.perf_counter() - t0
+    res["k4_launches"], res["k3_launches"] = ddc.LAUNCHES_C64, pll.LAUNCHES
+    print(f"phase 23 (f): dryrun({MESH_SHARDS}) {json.dumps(res)} on {card_line()}",
+          flush=True)
+    check(res["finite"] and res["k4_launches"] > 0 and res["k3_launches"] > 0,
+          "dryrun ran K4 and K3")
+    return res
+
+
+def phase24_mesh_cli(dev) -> None:
+    """The NOAA CLI with --map (no pyorbital on the machine: the log says so,
+    the image is still written, no map file), with --map and the bundled
+    TLE file, and with --mesh=2 on one card, which must exit non-zero with
+    the mesh's device-count message, as the JAX CLI does."""
+    raw, _ = synth_pass_bytes(60, dev, seed=2)
+    name = "SDRSharp_20170830_073907Z_137590000Hz_IQ.wav"
+    stem = name.split(".")[0]
+    tle = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tle",
+                       "noaa18_synthetic.txt")
+    for extra in (["--map"], ["--map", f"--tle={tle}"]):
+        _, ch, files, wall = run_cli(raw, name, ["-c", "137590000", "-f", "137620000",
+                                                 "-d", "noaa", *extra],
+                                     log_has="pyorbital not installed")
+        check(stem + "_f1.png" in files and not any("_map" in f for f in files)
+              and ch["usefulness"] == 1, f"--map files {sorted(files)}")
+        print(f"phase 24: CLI {' '.join(e.split('=')[0] for e in extra)}: rc 0 in "
+              f"{wall:.1f} s, 'pyorbital not installed' logged, files "
+              f"{ch['filesCreated']}", flush=True)
+    err = run_cli(raw, name, ["-c", "137590000", "-f", "137620000", "-d", "noaa",
+                              "--mesh=2"], expect_ok=False)
+    want = f"2x1 mesh needs 2 devices, have {torch.cuda.device_count()}"
+    check(want in err, f"--mesh=2 message: {err[-300:]}")
+    print(f"phase 24: CLI --mesh=2 on {torch.cuda.device_count()} card(s) exits "
+          f"non-zero: ValueError: {want}", flush=True)
 
 
 def k1k4_times(label: str = "k1k4") -> dict:
@@ -1540,7 +1830,7 @@ def main() -> int:
     raw, _ = synth_pass_bytes(80, dev, seed=1)
     k1 = k1_compare(ddc, fe, dev, raw, "phase 3")
     del raw
-    noaa_k1 = phase4_decode(ddc, fe, dev)
+    noaa_k1, noaa_raw = phase4_decode(ddc, fe, dev)
     phase5_cli(dev)
 
     fe92 = DdcFm(FS, APRS_OFFSET_HZ, design.blackmanharris(151), 22_050)
@@ -1556,24 +1846,40 @@ def main() -> int:
     k3 = {f"{kind}_{segs}": k3_compare(pll, kind, streams[kind], dev, segs)
           for kind in ("bpsk", "qpsk") for segs in (1, 8)}
     del streams
-    fc_k3 = phase11_funcube(dev)
-    mm_k3 = phase12_meteor(dev)
+    fc_k3, fc_raw = phase11_funcube(dev)
+    mm_k3, mm_raw = phase12_meteor(dev)
     phase13_psk_cli(dev)
 
     k4 = phase14_k4(ddc, dev)
     fm_k4 = phase15_fm(ddc, dev)
     fused_k4, bank_k4 = phase16_stream(ddc, dev)
-    bank_k1, k1_3ch = phase17_bank(ddc, dev)
+    bank_k1, k1_3ch, bank_raw = phase17_bank(ddc, dev)
+
+    # the mesh slice, every shard on this card
+    sharded_k1, k1_mesh = phase18_sharded_bytes(ddc, fe, dev, noaa_raw)
+    sharded_k4 = phase19_run_sharded(ddc, dev)
+    noaa_mesh_k1, _ = phase20_noaa_mesh(ddc, dev, noaa_raw)
+    del noaa_raw
+    bank_mesh_k1 = phase21_bank_mesh(ddc, dev, bank_raw)
+    del bank_raw
+    fc_mesh_k3, mm_mesh_k3 = phase22_psk_mesh(dev, fc_raw, mm_raw)
+    del fc_raw, mm_raw
+    dry = phase23_dryrun(ddc, pll, dev)
+    phase24_mesh_cli(dev)
 
     print(json.dumps({"kernels": [
         {"name": "ddc_fm_u8", "route": "cuda",
          "source": "directdemod_tpu_torch/csrc/ddc_fm_u8.cu",
          "replaces": "directdemod_tpu/ops/pallas_ddc.py:148",
-         "launches": noaa_k1 + afsk_k1 + bank_k1,
+         "launches": noaa_k1 + afsk_k1 + bank_k1 + sharded_k1 + noaa_mesh_k1 + bank_mesh_k1,
          "launches_by_path": {"noaa": noaa_k1, "afsk1200": afsk_k1,
-                              "multichannel": bank_k1},
+                              "multichannel": bank_k1, "sharded_frontend": sharded_k1,
+                              "noaa_mesh": noaa_mesh_k1, "multichannel_mesh": bank_mesh_k1},
          **k1, "max_abs_err": max(k1["max_abs_err"], k1_92["max_abs_err"],
-                                  k4["j409_k1"]["max_abs_err"], k1_3ch["max_abs_err"]),
+                                  k4["j409_k1"]["max_abs_err"], k1_3ch["max_abs_err"],
+                                  k1_mesh["max_abs_err"]),
+         **{f"{f}_sharded": k1_mesh[f] for f in ("ms", "plain_ms", "library_ms",
+                                                 "bound_ms", "max_abs_err")},
          "ms_j92": k1_92["ms"], "plain_ms_j92": k1_92["plain_ms"],
          "library_ms_j92": k1_92["library_ms"], "bound_ms_j92": k1_92["bound_ms"],
          **{f"{f}_3ch": k1_3ch[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -1582,9 +1888,10 @@ def main() -> int:
         {"name": "ddc_fm_c64", "route": "cuda",
          "source": "directdemod_tpu_torch/csrc/ddc_fm_c64.cu",
          "replaces": "directdemod_tpu/ops/pallas_ddc.py:31",
-         "launches": fm_k4 + fused_k4 + bank_k4,
+         "launches": fm_k4 + fused_k4 + bank_k4 + sharded_k4 + dry["k4_launches"],
          "launches_by_path": {"fm": fm_k4, "stream_fused": fused_k4,
-                              "multichannel": bank_k4},
+                              "multichannel": bank_k4, "stream_sharded": sharded_k4,
+                              "dryrun": dry["k4_launches"]},
          **{f: k4[34][f] for f in ("ms", "plain_ms", "library_ms", "bound_ms",
                                    "bound_by")},
          "max_abs_err": max(v["max_abs_err"] for key, v in k4.items()
@@ -1606,8 +1913,10 @@ def main() -> int:
         {"name": "symbol_scan", "route": "cuda",
          "source": "directdemod_tpu_torch/csrc/symbol_scan.cu",
          "replaces": "directdemod_tpu/ops/pll_scalar.py:67",
-         "launches": fc_k3 + mm_k3,
-         "launches_by_path": {"funcube": fc_k3, "meteor": mm_k3},
+         "launches": fc_k3 + mm_k3 + fc_mesh_k3 + mm_mesh_k3 + dry["k3_launches"],
+         "launches_by_path": {"funcube": fc_k3, "meteor": mm_k3,
+                              "funcube_mesh": fc_mesh_k3, "meteor_mesh": mm_mesh_k3,
+                              "dryrun": dry["k3_launches"]},
          "max_abs_err": max(v["max_abs_err"] for v in k3.values()),
          **{f: k3["bpsk_1"][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
                                           "chain_bound_ms")},

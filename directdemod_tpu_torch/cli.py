@@ -1,7 +1,7 @@
 """Command-line interface of the port.
 
 Port of `directdemod_tpu/cli.py:23-302` for the NOAA APT, AFSK1200, Funcube
-and Meteor-M2 decoders: the same
+and Meteor-M2 decoders, with every flag of the JAX CLI: the same
 getopt grammar and its quirks (`-sync` parses as `-s ync`, `-noimage` as
 `-n oimage`, `-ce` as `-c e`, the centre frequency then coming from the file
 name), the same per-channel fence and the same JSON report (`-r`), with
@@ -12,8 +12,12 @@ CUDA device `main` raises unless it is given one. As in the JAX CLI, the
 log goes to `log.txt` in the working directory (DEBUG) and to the console
 (INFO), and an unknown decoder ends the run with "Invalid decoder selected"
 and exit code 1 once the channels before it are decoded, writing no report.
-The flags the port does not have yet (`--map`, `--tle`, `--mesh`) exit
-non-zero with "not yet ported".
+`--mesh=<n>` (n > 1) builds an n-shard `time` mesh over the visible
+devices (`parallel.mesh`; with `device="cpu"` the 8 CPU shards that stand
+for the JAX tests' 8 virtual devices) before the channel loop, so a count
+that differs from the devices raises, outside the per-channel fence, as the
+JAX CLI does. `--map` (with `--tle=<file>`) draws the NOAA map overlay
+(`models.geo`), which logs an error and writes nothing without pyorbital.
 """
 from __future__ import annotations
 
@@ -27,9 +31,6 @@ from . import constants
 from .device import resolve
 from .io import sinks, sources
 from .utils import logsetup
-
-NOT_PORTED_FLAGS = ("--map", "--tle", "--mesh")
-
 
 def usage(err: str = "") -> None:
     if err:
@@ -55,10 +56,12 @@ Channels:
 \t\t-e <in sample#> : ends of signals (in order)
 
 Decoder flags:
-\t-d noaa : APT decoder (-sync writes sync csv, -noimage skips the image)
+\t-d noaa : APT decoder (-sync writes sync csv, --map map overlay,
+\t          --tle=<file> TLE source, -noimage skips the image)
 \t-d afsk1200 : APRS decoder (prints the last decoded payload)
 \t-d funcube : Funcube BPSK sync detector (--freqshift Doppler correction)
 \t-d meteor : Meteor QPSK sync detector
+\t--mesh=<n> : shard the NOAA/PSK decode over an n-device time mesh
 \t--segments=<n> : segment-parallel PLL scan for funcube/meteor
 \t--resident : copy the capture once into device memory and decode from
 \t             there (falls back to the blocked feed when it does not fit)
@@ -82,14 +85,16 @@ def main(argv=None, device=None) -> int:
     if "-h" in flags or "--help" in flags:
         usage()
         return 0
-    not_ported = [f for f in flags if f in NOT_PORTED_FLAGS]
-    if not_ported:
-        usage(f"{', '.join(not_ported)}: not yet ported")
-        return 1
+    map_draw = "--map" in flags
     if len(args) != 1:
         usage("Invalid argument: filename")
         return 1
 
+    mesh = None
+    mesh_n = next((int(v) for k, v in optlist if k == "--mesh"), 0)
+    if mesh_n > 1:
+        from .parallel.mesh import make_mesh, visible_devices
+        mesh = make_mesh(time=mesh_n, channel=1, devices=visible_devices(device))
     resident = "--resident" in flags
     corr_freq_shift = "--freqshift" in flags
     # --segments=<n>: segment-parallel PLL scan for the PSK decoders
@@ -177,12 +182,16 @@ def main(argv=None, device=None) -> int:
                 img_file = f"{stem}_f{i + 1}.png"
                 color_file = f"{stem}_f{i + 1}_color.png"
                 csv_file = f"{stem}_f{i + 1}.csv"
+                map_rot = f"{stem}_f{i + 1}_map_rot.png"
+                map_nrot = f"{stem}_f{i + 1}_map.png"
                 if outs[i] is not None:
                     img_file, csv_file = outs[i] + ".png", outs[i] + ".csv"
                     color_file = outs[i] + "_color.png"
+                    map_rot, map_nrot = outs[i] + "_map_rot.png", outs[i] + "_map.png"
 
                 from .models.noaa import NoaaDecoder
-                dec = NoaaDecoder(src_i, freq_offset, bandwidths[i], device=device)
+                dec = NoaaDecoder(src_i, freq_offset, bandwidths[i], device=device,
+                                  mesh=mesh)
                 if calc_image and dec.useful == 1:
                     sinks.write_image(img_file, dec.get_image())
                     entry["filesCreated"].append(img_file)
@@ -194,6 +203,12 @@ def main(argv=None, device=None) -> int:
                         entry["filesCreated"].append(color_file)
                     else:
                         logging.info("image ineligible for false color")
+                    if map_draw:
+                        from .models import geo
+                        created = geo.map_overlay_from_filename(
+                            dec, file_name, freqs[i], map_rot, map_nrot,
+                            next((v for k, v in optlist if k == "--tle"), None))
+                        entry["filesCreated"].extend(created)
                 if calc_sync and dec.useful == 1:
                     syncs = dec.get_accurate_sync(use_norm_correlate=True)
                     sinks.write_csv(csv_file, syncs,
@@ -220,12 +235,13 @@ def main(argv=None, device=None) -> int:
                     dec = FuncubeDecoder(src_i, freq_offset, bandwidths[i],
                                          report.get("centreFreq"), freqs[i],
                                          corr_freq_shift, n_segments=n_segments,
-                                         device=device)
+                                         device=device, mesh=mesh)
                     title = "Funcube syncs"
                 else:
                     from .models.meteorm2 import MeteorM2Decoder
                     dec = MeteorM2Decoder(src_i, freq_offset, bandwidths[i],
-                                          n_segments=n_segments, device=device)
+                                          n_segments=n_segments, device=device,
+                                          mesh=mesh)
                     title = "Meteor syncs"
                 syncs = dec.get_syncs()
                 logging.info("Complete: detected %d syncs", len(syncs))

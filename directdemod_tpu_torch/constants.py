@@ -1,5 +1,6 @@
 """Tunables and protocol constants of the NOAA APT, AFSK1200, PSK and FM
-slices, and the filter kinds of the filter facade.
+slices (with the NOAA satellites' downlink frequencies of the map overlay),
+and the filter kinds of the filter facade.
 
 Copy of the matching entries of `directdemod_tpu/constants.py` (the JAX
 package cannot be imported without importing jax). Values must stay
@@ -40,6 +41,7 @@ NOAA_MINPEAKDIST = 0.45         # minimum sync spacing in seconds
 NOAA_COLORCORRECT_FIFOLEN = 10_000
 NOAA_DETECTMAXCHANGE = 5        # max jitter (samples) for the usefulness test
 NOAA_DETECTCONSSYNCSNUM = 10    # consecutive syncs required for usefulness
+NOAA_SATS = {137_620_000: "NOAA 15", 137_100_000: "NOAA 19", 137_912_500: "NOAA 18"}
 
 # ---------------------------------------------------------------- AFSK1200 / APRS
 AFSK_BAUDRATE = 1200

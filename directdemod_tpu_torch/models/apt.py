@@ -88,14 +88,17 @@ def _gather(env: torch.Tensor, starts, length: int) -> torch.Tensor:
 
 
 def image_stage(audio: torch.Tensor, bp, am_block: int, strip_len: int,
-                num_pixels: int, unit: int, spans_a: list, spans_b: list):
+                num_pixels: int, unit: int, spans_a: list, spans_b: list,
+                env: torch.Tensor | None = None):
     """The image stage's device work (ref decode_noaa.py:274-373): bandpass
     + blocked envelope, the contrast probe, each line's pre-sync strip
     median, and per line-length group the resample to a multiple of `unit`
     pixels with the per-pixel median and the sync-train head. Returns host
     (probe, strips_a, strips_b, mats_a, mats_b); mats map a line to
-    (median_row (unit,), head (_SYNC_BITS, k))."""
-    env = am_ops.envelope_blocked(bp.zero_phase(audio.float()), am_block)
+    (median_row (unit,), head (_SYNC_BITS, k)). `env`: the band-passed
+    envelope when it is computed already (the mesh path)."""
+    if env is None:
+        env = am_ops.envelope_blocked(bp.zero_phase(audio.float()), am_block)
     kk = env.shape[0] // num_pixels
     probe = median(env[: kk * num_pixels].reshape(num_pixels, kk)).cpu().numpy()
 
@@ -244,11 +247,13 @@ def _quantize(line: np.ndarray, scale: float, offset: float) -> np.ndarray:
 # ------------------------------------------------------------------ assembly
 
 def assemble_image(audio: torch.Tensor, rate: int, csync_a: list, csync_b: list,
-                   ucsync: np.ndarray, bp, am_block: int
+                   ucsync: np.ndarray, bp, am_block: int,
+                   env: torch.Tensor | None = None
                    ) -> tuple[np.ndarray, int | None, int | None]:
     """Build the calibrated APT image from the FM audio on its device and
-    the filled syncs (ref decode_noaa.py:305-461). Returns (image,
-    channel_id_a, channel_id_b)."""
+    the filled syncs (ref decode_noaa.py:305-461), or from its band-passed
+    envelope `env` when that is given. Returns (image, channel_id_a,
+    channel_id_b)."""
     num_pixels = int(0.5 / K.NOAA_T)           # 2080 px per full line
     half = int(num_pixels * 0.5)               # 1040 per channel
     n_am = int(audio.shape[0])
@@ -269,7 +274,7 @@ def assemble_image(audio: torch.Tensor, rate: int, csync_a: list, csync_b: list,
 
     strip_len = int(len(K.NOAA_SYNCA) * K.NOAA_T * rate)
     probe, strips_a, strips_b, mats_a, mats_b = image_stage(
-        audio, bp, am_block, strip_len, num_pixels, half, spans_a, spans_b)
+        audio, bp, am_block, strip_len, num_pixels, half, spans_a, spans_b, env)
     return _calibration_walk(probe, mats_a, mats_b, strips_a, strips_b,
                              csync_a, ucsync, keep, num_pixels)
 

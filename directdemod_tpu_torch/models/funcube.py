@@ -35,7 +35,7 @@ def _waterfall_bytes(sigsrc):
 class FuncubeDecoder(PskSyncDetector):
     def __init__(self, sigsrc, offset, bw=None, center_frequency=None,
                  signal_freq=None, corrfreq=False, block_size=None,
-                 n_segments=None, device=None):
+                 n_segments=None, device=None, mesh=None):
         bw = int(bw) if bw else K.FUNCUBE_DEFAULT_BW
         params = PskParams(
             fs=sigsrc.sampFreq, sym_rate=K.FUNCUBE_SYMRATE, qpsk=False,
@@ -81,7 +81,7 @@ class FuncubeDecoder(PskSyncDetector):
 
         super().__init__(sigsrc, offset, bw, params, cfg, freq_fn=freq_fn,
                          block_size=block_size or PROC_CHUNKSIZE,
-                         n_segments=n_segments, device=device)
+                         n_segments=n_segments, device=device, mesh=mesh)
 
     @property
     def getSyncs(self):

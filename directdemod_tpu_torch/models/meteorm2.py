@@ -39,7 +39,8 @@ def _needle(bits: np.ndarray) -> np.ndarray:
 
 
 class MeteorM2Decoder(PskSyncDetector):
-    def __init__(self, sigsrc, offset, bw=None, n_segments=None, device=None):
+    def __init__(self, sigsrc, offset, bw=None, n_segments=None, device=None,
+                 mesh=None):
         bw = int(bw) if bw else K.METEOR_DEFAULT_BW
         params = PskParams(
             fs=sigsrc.sampFreq, sym_rate=K.METEOR_SYMRATE, qpsk=True,
@@ -56,7 +57,7 @@ class MeteorM2Decoder(PskSyncDetector):
             frame_spacing=K.METEOR_FRAME_SPACING_S * sigsrc.sampFreq,
             spacing_tol=0.05 * sigsrc.sampFreq)
         super().__init__(sigsrc, offset, bw, params, cfg,
-                         n_segments=n_segments, device=device)
+                         n_segments=n_segments, device=device, mesh=mesh)
 
     @property
     def getSyncs(self):

@@ -9,6 +9,13 @@ integer-stride rate int(2048000 / 34) = 60235 Hz, as in the reference, and
 crude sync indices live at that rate. Indices are int64 throughout; the
 reference's packing of indices into float32 pairs and its fixed candidate
 slots were workarounds for its device link and are not ported.
+
+With `mesh=` (`parallel.mesh`) the decode runs its stages over the mesh's
+`time` shards as the JAX decoder does: the front end in waves of blocks
+(`parallel.sharded`, K1 or K4 on each shard), the crude sync search with
+needle halos (`parallel.correlate`), the image stage's exact filtfilt and
+blocked envelope (`parallel.iir`, `parallel.am`), and the accurate sync's
+window batches split over the shards (the generic per-window walk).
 """
 from __future__ import annotations
 
@@ -41,11 +48,12 @@ class NoaaDecoder(TimedDecoder):
     `stage_seconds` as `TimedDecoder` gives them."""
 
     def __init__(self, sigsrc, offset: float, bw: int | None = None,
-                 device=None):
+                 device=None, mesh=None):
         self.src = sigsrc
         self.offset = float(offset)
         self.bw = int(bw) if bw else K.NOAA_FMBW
         self._init_device(device)
+        self.mesh = mesh             # optional: stages over its time shards
         self._audio = None           # (tensor, rate) at the crude-sync rate
         self._audio_strict = None    # (ndarray, rate) at NOAA_AUDSAMPRATE
         self._sync_a = None
@@ -73,7 +81,19 @@ class NoaaDecoder(TimedDecoder):
         j2 = int(decim_rate // target_rate) if not strict else 1
         out_rate = int(decim_rate / j2) if not strict else target_rate
 
-        if (not strict and j2 == 1
+        if self.mesh is not None and not strict and j2 == 1:
+            # without a strict resample the chain does not depend on the
+            # block size (every carry is exact): blocks that keep every
+            # shard busy
+            from ..parallel.sharded import ShardedDdcFm
+            ndev = self.mesh.shape["time"]
+            blk = int(min(K.PROC_CHUNKSIZE,
+                          max(1 << 20, self.src.length // (2 * ndev))))
+            with self._stage("fm_frontend"):
+                audio, _ = ShardedDdcFm(fe, self.mesh).process(self.src, blk)
+            return torch.from_numpy(audio).to(self.device), out_rate
+
+        if (self.mesh is None and not strict and j2 == 1
                 and callable(getattr(self.src, "read_raw_device", None))
                 and self.src.device == self.device):
             n = self.src.length
@@ -117,7 +137,17 @@ class NoaaDecoder(TimedDecoder):
             log.info("NOAA crude sync: correlating %d samples at %d Hz",
                      audio.shape[0], rate)
             with self._stage("crude_sync"):
-                self._sync_a, self._sync_b = _crude_sync(audio, rate)
+                if self.mesh is None:
+                    self._sync_a, self._sync_b = _crude_sync(audio, rate)
+                else:
+                    from ..parallel.correlate import sharded_find_sync_peaks
+                    env = am_ops.envelope_blocked(audio.float(), AM_BLOCK).cpu().numpy()
+                    self._sync_a, self._sync_b = (
+                        sharded_find_sync_peaks(
+                            self.mesh, env,
+                            corr_ops.apt_needle(bits, rate, K.NOAA_T, True), rate,
+                            K.NOAA_PEAKHEIGHTWIGGLE, K.NOAA_MINPEAKDIST)
+                        for bits in (K.NOAA_SYNCA, K.NOAA_SYNCB))
             self._useful = self._usefulness()
         return [self._sync_a, self._sync_b]
 
@@ -167,9 +197,19 @@ class NoaaDecoder(TimedDecoder):
                     log.error("sync A/B count mismatch; deriving B from A")
                     csync_b = list(np.asarray(csync_a) + int(0.25 * rate))
 
+                env = None
+                if self.mesh is not None:
+                    # the exact sharded filtfilt and the block-parallel
+                    # envelope
+                    from ..parallel.am import sharded_envelope_blocked
+                    from ..parallel.iir import sharded_zero_phase
+                    filtered = sharded_zero_phase(
+                        self.mesh, bp, audio.float().cpu().numpy())
+                    env = torch.from_numpy(sharded_envelope_blocked(
+                        self.mesh, filtered, AM_BLOCK)).to(self.device)
                 img, ida, idb = apt.assemble_image(audio, rate, csync_a,
                                                    csync_b, ucsync, bp,
-                                                   AM_BLOCK)
+                                                   AM_BLOCK, env=env)
             self._image = img
             self._ch_id = (ida, idb)
         return self._image
@@ -212,8 +252,10 @@ class NoaaDecoder(TimedDecoder):
         width = int(3 * sync_time * fs)
         # the min-distance grouping degenerates to one group per window
         # whenever the group distance exceeds the window: the per-window
-        # walk is then an argmax (the reference's fast path)
-        fast = K.NOAA_MINPEAKDIST * fs >= 2 * width
+        # walk is then an argmax (the reference's fast path); a mesh takes
+        # the generic walk, as the JAX decoder does
+        fast = self.mesh is None and K.NOAA_MINPEAKDIST * fs >= 2 * width
+        group = WINDOW_GROUP * (1 if self.mesh is None else self.mesh.shape["time"])
 
         results = []
         with self._stage("accurate_sync"):
@@ -228,10 +270,11 @@ class NoaaDecoder(TimedDecoder):
                                              positive=use_norm_correlate)
                 nj = torch.as_tensor(needle, dtype=torch.float32,
                                      device=self.device)
-                reduce = _fast_reduce if fast else _host_walk
+                reduce = (_fast_reduce if fast else _host_walk if self.mesh is None
+                          else self._sharded_walk)
                 found = []
-                for g0 in range(0, len(starts), WINDOW_GROUP):
-                    gs = starts[g0:g0 + WINDOW_GROUP]
+                for g0 in range(0, len(starts), group):
+                    gs = starts[g0:g0 + group]
                     found += reduce(self._windows(gs, 2 * width), nj,
                                     self.offset, fs, use_norm_correlate, gs)
                 results.append([[f[i] for f in found] for i in range(3)])
@@ -239,6 +282,24 @@ class NoaaDecoder(TimedDecoder):
         out = [da, list(np.diff(da)), qa, ta, db, list(np.diff(db)), qb, tb]
         self._accurate = (use_norm_correlate, out)
         return out
+
+    def _sharded_walk(self, batch, nj, offset, fs, use_norm, starts) -> list:
+        """`_host_walk` with the window batch split over the mesh's `time`
+        shards (the windows are independent: nothing passes between the
+        shards). The batch is padded to a whole number of rows a shard with
+        copies of its first row (zero rows would put NaNs through the
+        normalized correlation), dropped after."""
+        devs = self.mesh.time_devices
+        nw = batch.shape[0]
+        pad = (-nw) % len(devs)
+        if pad:
+            batch = torch.cat([batch, batch[:1].expand(pad, -1)])
+        per = batch.shape[0] // len(devs)
+        parts = [_windows_env_cor(batch[i * per:(i + 1) * per].to(d), nj.to(d),
+                                  offset, fs, use_norm) for i, d in enumerate(devs)]
+        env = torch.cat([e.cpu() for e, _ in parts])[:nw]
+        cor = torch.cat([c.cpu() for _, c in parts])[:nw]
+        return _walk(env.numpy(), cor.numpy(), nj.shape[0], fs, starts)
 
     def _windows(self, starts: list, n_win: int) -> torch.Tensor:
         """(len(starts), n_win) complex64 IQ windows on the device: gathered
@@ -331,8 +392,11 @@ def _host_walk(batch, nj, offset, fs, use_norm, starts) -> list:
     row; the first group is the window's sync. Returns what `_fast_reduce`
     returns."""
     env, cor = _windows_env_cor(batch, nj, offset, fs, use_norm)
-    env_np, cor_np = env.cpu().numpy(), cor.cpu().numpy()
-    ln = nj.shape[0]
+    return _walk(env.cpu().numpy(), cor.cpu().numpy(), nj.shape[0], fs, starts)
+
+
+def _walk(env_np, cor_np, ln, fs, starts) -> list:
+    """The walk of `_host_walk` over host envelope and correlation rows."""
     found = []
     for row, s0 in enumerate(starts):
         pk = peaks.host_find_sync_peaks(cor_np[row], fs, ln,

@@ -22,7 +22,9 @@ block loop. The valid symbols come to the host in one copy per scan
 (~14 B a symbol) and pass 2 reads them densely; the JAX package's sparse
 event/span gathers, its event cap and its `_CoverageError` fallback existed
 for its device link and are not ported (its sparse path is pinned equal to
-the dense one). The mesh-sharded segment scan is not ported either.
+the dense one). With `mesh=` (`parallel.mesh`) the segment scan runs over
+the mesh's `time` shards (`pll.symbol_scan_segments(mesh=)`, one K3 launch
+a shard), in the block loop, as the JAX decoder does.
 """
 from __future__ import annotations
 
@@ -244,13 +246,14 @@ class PskSyncDetector(TimedDecoder):
                  cfg: _SyncConfig, freq_fn=None,
                  block_size: int = PROC_CHUNKSIZE,
                  n_segments: int | None = None, warmup_symbols: int = 2000,
-                 device=None):
+                 device=None, mesh=None):
         """`n_segments` > 1 switches the PLL to the segment-parallel scan
         (`ops/pll.symbol_scan_segments`): the stream is split into segments
         with a `warmup_symbols` re-lock halo, each scanned independently
         (one K3 thread each on a card). This is the approximate scaling mode
         -- the same re-lock-transient tolerance the reference accepts at its
-        own chunk boundaries."""
+        own chunk boundaries. With `mesh` the segments are split over its
+        `time` shards; `n_segments` then defaults to their count."""
         self.src = sigsrc
         self.offset = float(offset)
         self.bw = bw
@@ -258,6 +261,9 @@ class PskSyncDetector(TimedDecoder):
         self.cfg = cfg
         self.freq_fn = freq_fn      # optional per-chunk Doppler freq array fn
         self.block_size = int(block_size)
+        self.mesh = mesh
+        if n_segments is None and mesh is not None:
+            n_segments = int(mesh.shape["time"])
         self.n_segments = int(n_segments) if n_segments else 1
         self.warmup_symbols = int(warmup_symbols)
         self._init_device(device)
@@ -293,7 +299,7 @@ class PskSyncDetector(TimedDecoder):
         """Segment scan of x; returns the owned symbols in segment order."""
         syms, _, owned = pll.symbol_scan_segments(
             self.p, x, self.cfg.sym_sync, self.cfg.sym_sync_alt,
-            self.n_segments, self.warmup_symbols, owned_start)
+            self.n_segments, self.warmup_symbols, owned_start, mesh=self.mesh)
         return pll.Symbols(*(t[owned] for t in syms))
 
     def get_syncs(self) -> list:
@@ -311,7 +317,8 @@ class PskSyncDetector(TimedDecoder):
         plan = plan_blocks(self.src.length, self.block_size)
         anch_cache: dict = {}
 
-        if (self.freq_fn is None and self.block_size == PROC_CHUNKSIZE
+        if (self.mesh is None and self.freq_fn is None
+                and self.block_size == PROC_CHUNKSIZE
                 and self.src.length <= _CAPTURE_SEG_MAX):
             # whole-capture path: unpack, per-chunk NCO, continuous
             # low-pass, then one scan (sequential or capture-level

@@ -4,6 +4,8 @@ Port of `directdemod_tpu/ops/am.py:16-67`: ``abs(hilbert(sig))``, applied
 per fixed-size block with no carried state (the reference's chunked AM
 demod, block = 240000); the blockwise semantics is part of the numeric
 contract. Full blocks run as one batched FFT, the remainder as its own.
+`envelope_lowpass` is the reference's other AM demod, a low-pass over the
+magnitude with carried state.
 """
 from __future__ import annotations
 
@@ -27,6 +29,21 @@ def analytic(x: torch.Tensor) -> torch.Tensor:
 def envelope(x: torch.Tensor) -> torch.Tensor:
     """|hilbert(x)| along the last axis."""
     return analytic(x).abs()
+
+
+def envelope_lowpass(x: torch.Tensor, fs: float, cutoff: float, state=None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """AM demodulation by low-pass filtering |x| (`demod_amFLT`, ref
+    demod_am.py:35-62): a 6th-order Butterworth low-pass over the
+    magnitude, its state carried for chunked streams (None: the unit-step
+    state, in x's real precision). Returns (envelope, new_state)."""
+    from .iir import IirFilter
+    filt = IirFilter.design_butter(fs, cutoff, order=6, kind="lowpass")
+    if state is None:
+        state = filt.initial_state_step(
+            torch.float64 if x.dtype in (torch.float64, torch.complex128)
+            else torch.float32, x.device)
+    return filt.apply(x.abs(), state)
 
 
 def envelope_blocked(x: torch.Tensor, block: int) -> torch.Tensor:

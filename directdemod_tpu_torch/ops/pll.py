@@ -565,7 +565,7 @@ def segment_plan(n: int, n_segments: int, warmup_symbols: int,
 
 def symbol_scan_segments(p: PskParams, x: torch.Tensor, sync, sync1,
                          n_segments: int, warmup_symbols: int = 2000,
-                         owned_start: int = 0
+                         owned_start: int = 0, mesh=None
                          ) -> tuple[Symbols, torch.Tensor, torch.Tensor]:
     """Independent scans of overlapping segments of x (the segment-parallel
     mode; exact sequential mode is `symbol_scan`), each from the initial
@@ -574,16 +574,38 @@ def symbol_scan_segments(p: PskParams, x: torch.Tensor, sync, sync1,
     segment on one lane of each of its three stage warps. Returns (the valid symbols of all segments in
     segment order, indices in x's coordinates; the segment of each symbol
     (int64); the `owned` mask, true where the A sample lies in the segment's
-    owned span)."""
+    owned span).
+
+    With `mesh` (`parallel.mesh`) the segments are split over its `time`
+    shards, which must divide them (a ValueError otherwise, as JAX's
+    sharding raises): each shard scans its own consecutive segments in one
+    launch on its device, x copied there. A segment's scan does not depend
+    on the others, so the result equals the call without a mesh, bit for
+    bit."""
     n = int(x.shape[0])
     plan = segment_plan(n, n_segments, warmup_symbols, p.symbol_period,
                         owned_start)
     seg_len = max(e - sf for (_, e, sf) in plan)
-    state = initial_state(p, len(sync), n_segments, x.device)
-    _, syms, counts, trunc = _scan(p, x, state, sync, sync1,
-                                   [sf for (_, _, sf) in plan], seg_len)
-    _warn_truncated(trunc, max_symbols(p, seg_len))
+    scan_from = [sf for (_, _, sf) in plan]
     dev = x.device
+    if mesh is None:
+        state = initial_state(p, len(sync), n_segments, dev)
+        _, syms, counts, trunc = _scan(p, x, state, sync, sync1, scan_from,
+                                       seg_len)
+    else:
+        devs = mesh.time_devices
+        if n_segments % len(devs):
+            raise ValueError(f"{n_segments} segments are not divisible by the "
+                             f"mesh's time axis ({len(devs)})")
+        per = n_segments // len(devs)
+        parts = [_scan(p, x.to(d), initial_state(p, len(sync), per, d), sync, sync1,
+                       scan_from[i * per:(i + 1) * per], seg_len)[1:]
+                 for i, d in enumerate(devs)]
+        syms = Symbols(*(torch.cat([getattr(sy, f).to(dev) for sy, _, _ in parts])
+                         for f in Symbols._fields))
+        counts = [c for _, cs, _ in parts for c in cs]
+        trunc = [t for _, _, ts in parts for t in ts]
+    _warn_truncated(trunc, max_symbols(p, seg_len))
     seg = torch.repeat_interleave(torch.arange(n_segments, device=dev),
                                   torch.tensor(counts, device=dev))
     lo = torch.tensor([s for (s, _, _) in plan], dtype=torch.int64, device=dev)

@@ -1,8 +1,7 @@
 """The chainable stream API.
 
-Port of `directdemod_tpu/stream/api.py` (less `run_sharded`, which waits
-for the port of `parallel/`), the user-facing form of the reference's
-`commSignal` chain (ref comm.py:15-181, tutorial/3_chunking.py:24-40):
+Port of `directdemod_tpu/stream/api.py`, the user-facing form of the
+reference's `commSignal` chain (ref comm.py:15-181, tutorial/3_chunking.py:24-40):
 
     audio, rate = (Stream(source)
                    .shift(30000)
@@ -14,7 +13,9 @@ for the port of `parallel/`), the user-facing form of the reference's
 The chain is a recipe: `run()` builds a `stream.pipeline.Pipeline` and
 streams the source through it block by block; `run_fused()` runs a
 shift -> FIR -> bw_limit [-> fm_demod] chain as the fused front end
-(`models.frontend.DdcFm`, K4 on complex blocks and K1 on raw ones).
+(`models.frontend.DdcFm`, K4 on complex blocks and K1 on raw ones), and
+`run_sharded(mesh)` runs that front end over the `time` shards of a mesh
+(`parallel.sharded`).
 """
 from __future__ import annotations
 
@@ -85,6 +86,19 @@ class Stream:
             return self.run(block_size)
         return fe.process(self.source, block_size=block_size,
                           device=self.device, dtype=self.dtype)
+
+    def run_sharded(self, mesh, block_size: int = PROC_CHUNKSIZE
+                    ) -> tuple[np.ndarray, int]:
+        """The fused front end in waves of blocks over `mesh`'s `time`
+        shards (`parallel.sharded.ShardedDdcFm`, on the mesh's devices);
+        only a shift -> FIR -> bw_limit [-> fm_demod] chain runs so."""
+        fe = self._as_ddc()
+        if fe is None:
+            raise ValueError("run_sharded requires a shift->FIR->bw_limit"
+                             "[->fm_demod] chain")
+        from ..parallel.sharded import ShardedDdcFm
+        return ShardedDdcFm(fe, mesh).process(self.source, block_size,
+                                              dtype=self.dtype)
 
     def _as_ddc(self):
         from ..models.frontend import DdcFm

@@ -209,16 +209,138 @@ def test_cli_afsk_noise_only_capture(tmp_path, capsys):
     assert json.load(open(report))["channels"][0]["usefulness"] == 0
 
 
-@pytest.mark.parametrize("args", [
-    ["-f", "137620000", "-d", "funcube", "--mesh=2"],
-    ["-f", "137620000", "-d", "meteor", "--mesh=4"],
-    ["-f", "137620000", "-d", "noaa", "--map"],
-    ["-f", "137620000", "-d", "noaa", "--mesh=2"],
-    ["-f", "137620000", "-d", "noaa", "--tle=tle.txt"],
+TIMINGS = ("decodeSeconds", "residentUploadSeconds", "device")
+
+
+def _both_clis(args, tmp_path, monkeypatch):
+    """Run both CLIs on the same arguments, each in its own directory with
+    `-o out -r rep.json`; returns {name: (report, directory)}."""
+    got, before = {}, list(logging.getLogger().handlers)
+    for name, main in (("port", main_cpu), ("jax", jcli.main)):
+        os.mkdir(tmp_path / name)
+        monkeypatch.chdir(tmp_path / name)
+        assert main(args[:-1] + ["-o", "out", "-r", "rep.json", args[-1]]) == 0, name
+        _drop_handlers(before)
+        got[name] = (json.load(open(tmp_path / name / "rep.json")), tmp_path / name)
+    return got
+
+
+def _same_report(got):
+    """The reports are equal but for the timings (and the port's device);
+    the channel entries name the same files."""
+    (p, _), (r, _) = got["port"], got["jax"]
+    p, r = dict(p), dict(r)
+    p.pop("timeOfExec"), r.pop("timeOfExec")
+    pch = [{k: v for k, v in c.items() if k not in TIMINGS} for c in p.pop("channels")]
+    rch = [{k: v for k, v in c.items() if k not in TIMINGS} for c in r.pop("channels")]
+    assert p == r and pch == rch and len(pch) == 1
+    return pch[0]
+
+
+def _same_image(got, name="out.png"):
+    a = np.asarray(Image.open(got["port"][1] / name)).astype(np.int64)
+    b = np.asarray(Image.open(got["jax"][1] / name)).astype(np.int64)
+    assert a.shape == b.shape
+    assert np.abs(a - b).max() <= 1 and np.mean(a != b) < 0.01
+
+
+def test_cli_map_without_pyorbital_like_jax_cli(noaa_wav, tmp_path, monkeypatch):
+    """--map where pyorbital is missing (as on both machines): both CLIs log
+    the error and write the image, and no map file."""
+    monkeypatch.setitem(sys.modules, "pyorbital", None)
+    monkeypatch.setitem(sys.modules, "pyorbital.orbital", None)
+    got = _both_clis(["-c", "137590000", "-f", "137620000", "-d", "noaa", "--map",
+                      noaa_wav], tmp_path, monkeypatch)
+    ch = _same_report(got)
+    assert ch["filesCreated"] == ["out.png"] and ch["usefulness"] == 1
+    _same_image(got)
+    for name in ("port", "jax"):
+        assert "pyorbital not installed" in open(got[name][1] / "log.txt").read()
+        assert sorted(os.listdir(got[name][1])) == ["log.txt", "out.png", "rep.json"]
+
+
+def test_cli_map_with_bundled_tle_like_jax_cli(noaa_wav, tmp_path, monkeypatch):
+    """--map --tle=tle/noaa18_synthetic.txt on a NOAA-18 channel, with a fake
+    pyorbital and a fake basemap renderer: both CLIs take the satellite from
+    the channel's frequency and the time from the file name, check the TLE
+    file, and write the two map files beside the image."""
+    from tests.test_torch_geo import _FakeOrbital, _fake_basemap, _install_fake
+    _install_fake(monkeypatch, "pyorbital")
+    _install_fake(monkeypatch, "pyorbital.orbital", Orbital=_FakeOrbital)
+    _fake_basemap(monkeypatch, {})
+    tle = os.path.join(ROOT, "tle", "noaa18_synthetic.txt")
+    got = _both_clis(["-c", "137882500", "-f", "137912500", "-d", "noaa", "--map",
+                      f"--tle={tle}", noaa_wav], tmp_path, monkeypatch)
+    ch = _same_report(got)
+    assert ch["filesCreated"] == ["out.png", "out_map_rot.png", "out_map.png"]
+    _same_image(got)
+    for f in ("out_map_rot.png", "out_map.png"):
+        shapes = [np.asarray(Image.open(got[n][1] / f)).shape for n in ("port", "jax")]
+        assert shapes[0] == shapes[1]
+
+
+def test_cli_tle_without_map_like_jax_cli(noaa_wav, tmp_path, monkeypatch):
+    """--tle alone is taken and changes nothing: no map is asked for."""
+    got = _both_clis(["-c", "137590000", "-f", "137620000", "-d", "noaa",
+                      "--tle=tle/noaa18_synthetic.txt", noaa_wav], tmp_path, monkeypatch)
+    assert _same_report(got)["filesCreated"] == ["out.png"]
+    _same_image(got)
+
+
+def test_cli_noaa_on_a_mesh_like_jax_cli(noaa_wav, tmp_path, monkeypatch):
+    """--mesh=8 (the JAX test process's device count; the port's CPU shards)
+    with -sync: the same report, the image within one level on under 1 % of
+    pixels, the sync CSV within a sample (D12)."""
+    got = _both_clis(["-c", "137590000", "-f", "137620000", "-d", "noaa", "--mesh=8",
+                      "-sync", noaa_wav], tmp_path, monkeypatch)
+    assert _same_report(got)["filesCreated"] == ["out.png", "out.csv"]
+    _same_image(got)
+    cp, cj = (_csv_columns(got[n][1] / "out.csv") for n in ("port", "jax"))
+    assert list(cp) == list(cj)
+    for col in ("syncA", "syncB"):
+        assert len(cp[col]) == len(cj[col]) > 0
+        assert np.max(np.abs(np.subtract(cp[col], cj[col]))) <= 1
+
+
+def _meteor_iq():
+    from tests.test_psk_sync import _qpsk_capture
+    return _qpsk_capture([0.5 + i * 0.11 for i in range(5)], dur_s=1.4)
+
+
+@pytest.mark.parametrize("decoder,name,freqs", [
+    ("funcube", "fc_145865000Hz_IQ.wav", ["-c", "145865000", "-f", "145870000"]),
+    ("meteor", "mm_137100000Hz_IQ.wav", ["-c", "137096000", "-f", "137100000"]),
 ])
-def test_cli_not_yet_ported_exits_nonzero(noaa_wav, args, capsys):
-    assert main_cpu(["-c", "137590000"] + args + [noaa_wav]) != 0
-    assert "not yet ported" in capsys.readouterr().out
+def test_cli_psk_on_a_mesh_like_jax_cli(tmp_path, monkeypatch, decoder, name, freqs):
+    """--mesh=8: the segment scan over the 8 shards (8 segments, the block
+    loop); the same sync CSV. The Meteor capture is tests/test_psk_sync.py's
+    QPSK stream, on which the segmented scans of both packages lock alike
+    (on chip_smoke's noisier synthesis a segment of either side may miss a
+    frame the other finds, see test_cli_psk_matches_jax_cli)."""
+    path = str(tmp_path / name)
+    if decoder == "funcube":
+        raw, _ = chip_smoke.synth_funcube_bytes(7.3, "cpu", seed=11)
+        _psk_wav(path, raw.numpy())
+    else:
+        _write_wav(path, _meteor_iq())
+    got = _both_clis(freqs + ["-d", decoder, "--mesh=8", path], tmp_path, monkeypatch)
+    ch = _same_report(got)
+    assert ch["usefulness"] == 1 and ch["filesCreated"] == ["out.csv"]
+    csvs = [open(got[n][1] / "out.csv").read() for n in ("port", "jax")]
+    assert csvs[0] == csvs[1] and csvs[0].count("\n") >= 2
+
+
+def test_cli_mesh_count_unlike_devices_raises_like_jax_cli(noaa_wav):
+    """--mesh=2 where 8 devices are visible: both CLIs raise the mesh's
+    ValueError outside the per-channel fence (on one card the port's
+    --mesh=2 raises the same way, "have 1")."""
+    args = ["-c", "137590000", "-f", "137620000", "-d", "noaa", "--mesh=2", noaa_wav]
+    errors = []
+    for main in (main_cpu, jcli.main):
+        with pytest.raises(ValueError) as e:
+            main(args)
+        errors.append(str(e.value))
+    assert errors[0] == errors[1] == "2x1 mesh needs 2 devices, have 8"
 
 
 def test_python_m_entry_point():

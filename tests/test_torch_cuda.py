@@ -697,3 +697,99 @@ def test_scan_kernel_stage_clocks(dev):
     p, s0, s1 = _psk("bpsk")
     cyc = pll.stage_cycles(p, x, pll.initial_state(p, len(s0), 1, dev), s0, s1)
     assert all(c > 0 for c in cyc) and max(cyc[:2]) <= cyc[3]
+
+
+# ------------------------------------------------------------------ the mesh
+# A mesh that names the card several times (one card carries every shard,
+# one after the other): the sharded paths take the same kernels as the
+# sequential ones, and each kernel's output does not depend on the launch,
+# so the two agree bit for bit.
+
+def _card_mesh(dev, time=4, channel=1):
+    from directdemod_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(time=time, channel=channel, devices=[dev] * (time * channel))
+
+
+def _mesh_source(kind, n, dev, seed=3):
+    rng = np.random.default_rng(seed)
+    if kind == "u8":
+        raw = torch.from_numpy(rng.integers(0, 256, 2 * n).astype(np.uint8)).to(dev)
+        return sources.DeviceRawSource(raw, FS)
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(np.complex64)
+    return sources.ArraySource(x, FS)
+
+
+@pytest.mark.parametrize("kind", ["u8", "c64"])
+@pytest.mark.parametrize("bw", [60000, 5000])          # J = 34, 409
+def test_sharded_front_end_equals_sequential_bit_for_bit(dev, kind, bw):
+    """ShardedDdcFm over bytes (K1) and complex64 (K4) on a 4-shard mesh of
+    the card: two whole waves, a leftover block and a ragged tail, at an odd
+    block length (each block at another decimator phase)."""
+    from directdemod_tpu_torch.parallel.sharded import ShardedDdcFm
+    block = 300_007
+    src = _mesh_source(kind, 9 * block + 12_345, dev)
+    fe = _fe(bw)
+    ref, rate = fe.process(src, block_size=block, device=dev)
+    counter = "LAUNCHES" if kind == "u8" else "LAUNCHES_C64"
+    before = getattr(ddc, counter)
+    got, rate2 = ShardedDdcFm(fe, _card_mesh(dev)).process(src, block)
+    assert getattr(ddc, counter) - before >= 8      # one a block of the waves
+    assert rate == rate2 and got.shape == ref.shape
+    assert np.array_equal(got, ref)
+
+
+def test_stream_run_sharded_equals_run_fused_on_the_card(dev):
+    from directdemod_tpu_torch.stream.api import Stream
+    src = _mesh_source("c64", 2_000_000 + 777, dev, seed=5)
+    chain = (Stream(src, device=dev).shift(30000).filter(design.blackmanharris(151))
+             .bw_limit(60000).fm_demod())
+    ref, rate = chain.run_fused(block_size=250_000)
+    got, rate2 = chain.run_sharded(_card_mesh(dev), block_size=250_000)
+    assert rate == rate2 and np.array_equal(got, ref)
+
+
+@pytest.mark.parametrize("kind", ["u8", "c64"])
+def test_bank_on_a_channel_mesh_equals_the_bank(dev, kind):
+    """MultiDdcFm on a 1 x 3 channel mesh of the card: one kernel launch a
+    block on each shard, each channel equal to the unsharded bank's."""
+    from directdemod_tpu_torch.models.multichannel import MultiDdcFm
+    src = _mesh_source(kind, 3 * 400_000 + 99, dev, seed=6)
+    freqs = (120_000, 412_500, -400_000)
+    taps = design.blackmanharris(151)
+    ref, _ = MultiDdcFm(FS, freqs, taps, 60000).process(src, 400_000, device=dev)
+    counter = "LAUNCHES" if kind == "u8" else "LAUNCHES_C64"
+    before = getattr(ddc, counter)
+    got, _ = MultiDdcFm(FS, freqs, taps, 60000,
+                        mesh=_card_mesh(dev, time=1, channel=3)).process(src, 400_000)
+    assert getattr(ddc, counter) - before == 3 * 4    # 3 shards x 4 blocks
+    assert np.array_equal(got, ref)
+
+
+@pytest.mark.parametrize("kind", ["bpsk", "qpsk"])
+def test_scan_kernel_over_a_mesh_equals_one_launch(dev, kind):
+    """symbol_scan_segments(mesh=): one K3 launch a shard over its own
+    segments, the same symbols as one launch over all of them."""
+    x = torch.from_numpy(k3_streams(600_000, seed=4)[kind]).to(dev)
+    p, s0, s1 = _psk(kind)
+    want = pll.symbol_scan_segments(p, x, s0, s1, 8, 500)
+    before = pll.LAUNCHES
+    got = pll.symbol_scan_segments(p, x, s0, s1, 8, 500, mesh=_card_mesh(dev))
+    assert pll.LAUNCHES == before + 4
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(a, b)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+def test_mesh_naming_the_card_twice(dev):
+    """Two shards on one card: a ppermute'd halo is a copy of its sender,
+    an all_gather stacks every shard's tensor on each shard's device."""
+    from directdemod_tpu_torch.parallel import mesh as pmesh
+    m = pmesh.make_mesh(time=2, devices=[dev, dev])
+    assert m.time_devices == [dev, dev] and m.shape == {"time": 2, "channel": 1}
+    a = torch.arange(8.0, device=dev)
+    out = pmesh.ppermute([a, a + 1], [(0, 1)], m.time_devices)
+    assert torch.equal(out[1], a) and out[1].data_ptr() != a.data_ptr()
+    g = pmesh.all_gather([a, a + 1], m.time_devices)
+    assert g[0].device == dev and torch.equal(g[0][1], a + 1)
+    with pytest.raises(ValueError, match="2x1 mesh needs 2 devices, have 1"):
+        pmesh.make_mesh(time=2)

@@ -1,7 +1,10 @@
 """The port's device rule (`directdemod_tpu_torch.device.resolve`): every
 entry point takes `device=None`, which is the current CUDA device and
 raises without one; `device="cpu"` runs on the CPU. The raising half needs
-a machine without a card and skips where there is one."""
+a machine without a card and skips where there is one. A mesh
+(`parallel.mesh.make_mesh`) follows the same rule: its shards are every
+visible CUDA device for `device=None`, CPU shards for `device="cpu"`; the
+sharded entry points run on the mesh's devices."""
 import numpy as np
 import pytest
 import torch
@@ -18,6 +21,8 @@ from directdemod_tpu_torch.models.meteorm2 import MeteorM2Decoder
 from directdemod_tpu_torch.models.multichannel import MultiDdcFm
 from directdemod_tpu_torch.models.noaa import NoaaDecoder
 from directdemod_tpu_torch.ops import design, pll
+from directdemod_tpu_torch.parallel.dryrun import dryrun
+from directdemod_tpu_torch.parallel.mesh import make_mesh, single_device_mesh
 from directdemod_tpu_torch.stream import pipeline
 from directdemod_tpu_torch.stream.api import Stream
 
@@ -52,6 +57,10 @@ ENTRY_POINTS = {
     "Pipeline": lambda **kw: pipeline.Pipeline([pipeline.FmDemod()], FS, **kw),
     "cli.main": lambda **kw: cli.main(["-f", "137620000", "-c", "137590000",
                                        "-d", "noaa", "missing.wav"], **kw),
+    "make_mesh": lambda **kw: make_mesh(**kw),
+    "make_mesh(time=2)": lambda **kw: make_mesh(time=2, **kw),
+    "single_device_mesh": lambda **kw: single_device_mesh(**kw),
+    "dryrun": lambda **kw: dryrun(2, chunk_len=4096, **kw),
 }
 
 

@@ -1,6 +1,7 @@
 """The PyTorch port imports torch and never jax: every module of the package
 (the fourth slice's `device`, `models.fm`, `models.multichannel`,
-`ops.filters` and `stream.*` among them), and the chip smoke script, import
+`ops.filters` and `stream.*`, and the ninth slice's `parallel.*` and
+`models.geo` among them), and the chip smoke script, import
 in a fresh interpreter without loading jax."""
 import os
 import subprocess
@@ -20,7 +21,9 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
          if not m.name.endswith("__main__")]
 new = {"directdemod_tpu_torch." + m for m in (
     "device", "models.fm", "models.multichannel", "ops.filters", "stream.api",
-    "stream.checkpoint", "stream.pipeline", "stream.plan")}
+    "stream.checkpoint", "stream.pipeline", "stream.plan", "models.geo",
+    "parallel", "parallel.am", "parallel.correlate", "parallel.dryrun",
+    "parallel.iir", "parallel.mesh", "parallel.sharded")}
 assert new <= set(names), sorted(new - set(names))
 for name in names + ["chip_smoke"]:
     importlib.import_module(name)
@@ -36,7 +39,7 @@ def test_port_modules_import_without_jax():
     proc = subprocess.run([sys.executable, "-c", _CHECK], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 41      # all four slices were walked
+    assert int(proc.stdout.strip()) >= 51      # every slice was walked
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

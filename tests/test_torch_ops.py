@@ -47,7 +47,7 @@ def _close(got, ref, rtol):
 
 def test_constants_equal_the_reference():
     names = [n for n in dir(constants) if n.isupper()]
-    assert len(names) == 29
+    assert len(names) == 30
     for name in names:
         assert getattr(constants, name) == getattr(jconstants, name), name
 
@@ -109,6 +109,28 @@ def test_envelope_blocked(rng, n, block):
     got = am.envelope_blocked(_t(x), block).numpy()
     ref = jam.envelope_blocked(jnp.asarray(x), block)
     _close(got, ref, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.complex64])
+def test_envelope_lowpass(rng, dtype):
+    """The low-pass AM demod against JAX, and chunked with the carried state
+    equal to one call (up to the association of the block sums)."""
+    n = 30_000
+    x = rng.standard_normal(n)
+    if dtype == np.complex64:
+        x = x + 1j * rng.standard_normal(n)
+    x = x.astype(dtype)
+    got, st = am.envelope_lowpass(_t(x), 48000, 3000)
+    want, jst = jam.envelope_lowpass(jnp.asarray(x), 48000, 3000)
+    real = np.float64 if dtype == np.float64 else np.float32
+    assert got.numpy().dtype == real and st.numpy().dtype == real
+    tol = 1e-12 if dtype == np.float64 else 1e-5
+    _close(got, np.asarray(want), tol)
+    _close(st, np.asarray(jst), tol)
+    a, s1 = am.envelope_lowpass(_t(x[:12_345]), 48000, 3000)
+    b, s2 = am.envelope_lowpass(_t(x[12_345:]), 48000, 3000, s1)
+    _close(torch.cat([a, b]), got.numpy(), tol)
+    _close(s2, st.numpy(), tol)
 
 
 def test_norm_correlate_and_correlate_same(rng):
