@@ -5,8 +5,8 @@
 
 Drives the port's decode paths, NOAA APT, AFSK1200/APRS, Funcube BPSK,
 Meteor-M2 QPSK and FM, the chainable Stream API, the one-pass multichannel
-front end and the single-process device mesh, on the card and fails (non-zero exit, no result
-line) on any error. Phases, in order:
+front end and the device mesh, in one process and over two, on the card
+and fails (non-zero exit, no result line) on any error. Phases, in order:
 
 1. check that a CUDA device exists and print its name and power limit;
 2. build the CUDA kernels K1 (`csrc/ddc_fm_u8.cu`), K4
@@ -87,7 +87,18 @@ line) on any error. Phases, in order:
     --map, with --map --tle=tle/noaa18_synthetic.txt (no pyorbital here:
     the error is logged, the image written, no map) and with --mesh=2,
     which exits non-zero with the mesh's device-count message;
-25. print the kernel table as one JSON line (time, plain time, bound and
+25. the mesh over two processes (`parallel.distributed`, gloo on
+    localhost), started with `subprocess` (`chip_smoke.py --worker ...`),
+    each owning two `time` shards that name this card: (g) ShardedDdcFm
+    over phase 4's bytes written to a .dat file, each rank opening it as
+    IQDat and reading its own blocks (K1), and (h) over phase 19's capture
+    (K4), every output on every rank bit for bit the one-process mesh's;
+    (i) NoaaDecoder(mesh=) cold and warm, rank 0 against phase 20's
+    decode (crude syncs equal, >= 99.9 % of pixels and none off by more
+    than 1, accurate syncs within a sample); each rank's launches and wall
+    against the one-process mesh over the same files. A rank that fails
+    or outlives its time fails the run;
+26. print the kernel table as one JSON line (time, plain time, bound and
     library-call time, launches on each path, the mesh paths among them),
     then the result line {"ok": true, "device": {...}} last.
 
@@ -97,6 +108,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import struct
 import subprocess
 import sys
@@ -1522,7 +1534,8 @@ def bit_diff(got: np.ndarray, ref: np.ndarray) -> tuple[int, float]:
     return int(diff.sum()), float(np.abs(got.astype(np.float64) - ref).max(initial=0.0))
 
 
-def phase18_sharded_bytes(ddc, fe, dev, raw: torch.Tensor) -> tuple[int, dict]:
+def phase18_sharded_bytes(ddc, fe, dev, raw: torch.Tensor, work: str
+                          ) -> tuple[int, dict]:
     """(a) ShardedDdcFm over phase 4's 10-minute capture held on the card (a
     DeviceRawSource, its blocks sliced there) on a 4-shard `time` mesh,
     against DdcFm.process at the same 20,000,000-sample blocks: each shard
@@ -1530,7 +1543,8 @@ def phase18_sharded_bytes(ddc, fe, dev, raw: torch.Tensor) -> tuple[int, dict]:
     `head=`, one output more in front, so every output is the sequential
     stream's bit for bit. Then one such sharded K1 launch (the second block,
     its halo as the head) against its plain version and the fp64 oracle,
-    timed. Returns the sharded run's K1 launches and that comparison."""
+    timed. Keeps the sharded outputs in `work` for phase 25 (g). Returns the
+    sharded run's K1 launches and that comparison."""
     from directdemod_tpu_torch import constants
     from directdemod_tpu_torch.io.sources import DeviceRawSource
     from directdemod_tpu_torch.ops import resample as rs
@@ -1554,6 +1568,8 @@ def phase18_sharded_bytes(ddc, fe, dev, raw: torch.Tensor) -> tuple[int, dict]:
           f"sequential on {card_line()}", flush=True)
     check(n_diff == 0, f"sharded front end over bytes: {n_diff} outputs differ")
     check(launches >= len(range(0, src.length, blk)), f"K1 launches {launches}")
+    np.save(os.path.join(work, "g_ref.npy"), got)
+    del got, ref
     J, K = fe.stride, fe.ntaps
     off = rs.decim_phase(blk, J)
     halo = sharded.halo
@@ -1568,16 +1584,23 @@ def phase18_sharded_bytes(ddc, fe, dev, raw: torch.Tensor) -> tuple[int, dict]:
     return launches, k1
 
 
-def phase19_run_sharded(ddc, dev, seconds: float = 120.0) -> int:
-    """(b) Stream.run_sharded on a 4-shard mesh against run_fused, tutorial
-    3's chain over phase 16's 2-minute complex64 FM capture (host): K4 a
-    block, every output bit for bit. Returns run_sharded's K4 launches."""
-    from directdemod_tpu_torch.io.sources import ArraySource
+def fm_chain(source, dev):
+    """Tutorial 3's chain over `source`: shift, Blackman-Harris, 60 kHz,
+    FM."""
     from directdemod_tpu_torch.ops import filters
     from directdemod_tpu_torch.stream.api import Stream
+    return (Stream(source, device=dev).shift(FM_OFFSET_HZ)
+            .filter(filters.blackman_harris(151)).bw_limit(60_000).fm_demod())
+
+
+def phase19_run_sharded(ddc, dev, work: str, seconds: float = 120.0) -> int:
+    """(b) Stream.run_sharded on a 4-shard mesh against run_fused, tutorial
+    3's chain over phase 16's 2-minute complex64 FM capture (host): K4 a
+    block, every output bit for bit. Keeps the capture and the outputs in
+    `work` for phase 25 (h). Returns run_sharded's K4 launches."""
+    from directdemod_tpu_torch.io.sources import ArraySource
     x = synth_fm(int(seconds * FS), dev, seed=6)
-    chain = (Stream(ArraySource(x, FS), device=dev).shift(FM_OFFSET_HZ)
-             .filter(filters.blackman_harris(151)).bw_limit(60_000).fm_demod())
+    chain = fm_chain(ArraySource(x, FS), dev)
     t0 = time.perf_counter()
     ref, rate = chain.run_fused()
     t_fused = time.perf_counter() - t0
@@ -1593,15 +1616,18 @@ def phase19_run_sharded(ddc, dev, seconds: float = 120.0) -> int:
           f"{t_sh:.3f} s, run_fused {t_fused:.3f} s on {card_line()}", flush=True)
     check(rate == rate2 and n_diff == 0, f"run_sharded vs run_fused: {n_diff} differ")
     check(launches == -(-len(x) // 20_000_000), f"K4 launches {launches}")
+    np.save(os.path.join(work, "fm.npy"), x)
+    np.save(os.path.join(work, "h_ref.npy"), got)
     return launches
 
 
-def phase20_noaa_mesh(ddc, dev, raw: torch.Tensor) -> tuple[int, dict]:
+def phase20_noaa_mesh(ddc, dev, raw: torch.Tensor, work: str) -> tuple[int, dict]:
     """(c) NoaaDecoder(mesh=) on phase 4's 10-minute capture, a 4-shard mesh,
     cold and then warm, against the unsharded decode: usefulness 1, crude
     syncs equal, >= 99 % of image pixels equal and the accurate syncs
-    within one sample (D12). Returns the warm run's K1 launches and its
-    stage seconds and wall."""
+    within one sample (D12). Keeps the capture as a .dat file and the mesh
+    decode's results in `work` for phase 25 (i). Returns the warm run's K1
+    launches and its stage seconds and wall."""
     from directdemod_tpu_torch.io.sources import DeviceRawSource
     from directdemod_tpu_torch.models.noaa import NoaaDecoder
     src = DeviceRawSource(raw, FS)
@@ -1637,6 +1663,9 @@ def phase20_noaa_mesh(ddc, dev, raw: torch.Tensor) -> tuple[int, dict]:
         check(px >= 0.99, f"mesh decode image {px}")
         check(min(acc_d) >= 0 and max(acc_d) <= 1, f"accurate syncs {acc_d}")
         check(launches > 0, "the mesh decode launched K1")
+    np.savez(os.path.join(work, "i_ref.npz"), sync_a=crude[0], sync_b=crude[1], image=img,
+             acc_a=np.asarray(acc[0]), acc_b=np.asarray(acc[4]))
+    raw.cpu().numpy().tofile(os.path.join(work, "noaa.dat"))
     return launches, {"wall_s": wall, "seq_wall_s": t_seq, "stages": stages}
 
 
@@ -1766,6 +1795,213 @@ def phase24_mesh_cli(dev) -> None:
           f"non-zero: ValueError: {want}", flush=True)
 
 
+# ------------------------------------------------------------- processes
+PROC_WORLD = 2                  # phase 25's processes, each owning two shards on the card
+PROC_SHARDS = 2
+WORKER_TIMEOUT_S = 600
+
+
+def worker_source(work: str, dev, case: str):
+    """Phase 25's input of `case` as a rank opens it, with its front end:
+    the NOAA bytes as an IQDat and the NOAA front end for (g) and (i); the
+    complex64 capture as an ArraySource over the memory-mapped file and
+    tutorial 3's front end for (h)."""
+    from directdemod_tpu_torch.io.sources import ArraySource, IQDat
+    from directdemod_tpu_torch.models.frontend import DdcFm
+    from directdemod_tpu_torch.ops import design
+    if case == "h":
+        fm = ArraySource(np.load(os.path.join(work, "fm.npy"), mmap_mode="r"), FS)
+        return fm, fm_chain(fm, dev)._as_ddc()
+    return (IQDat(os.path.join(work, "noaa.dat"), FS),
+            DdcFm(FS, OFFSET_HZ, design.blackmanharris(151), 60_000))
+
+
+def mesh_worker(rank: int, world: int, port: int, work: str, cases: str) -> None:
+    """One rank of phase 25 (`chip_smoke.py --worker rank world port work
+    cases`): joins the process group on localhost, takes PROC_SHARDS
+    `time` shards that all name cuda:0 of a mesh over every rank, and runs
+    `cases` on it, each rank reading only its own blocks: (g) ShardedDdcFm
+    over the NOAA bytes (K1), (h) over the complex64 capture (K4), (i)
+    NoaaDecoder(mesh=) cold and warm. Each output is held to the
+    one-process results in `work`, bit for bit for (g) and (h), by the JAX
+    two-process test's bars on rank 0 for (i). Prints one line
+    `WORKER {json}` a case."""
+    from directdemod_tpu_torch import constants
+    from directdemod_tpu_torch.models.noaa import NoaaDecoder
+    from directdemod_tpu_torch.ops import ddc
+    from directdemod_tpu_torch.parallel import distributed
+    from directdemod_tpu_torch.parallel.mesh import make_mesh
+    from directdemod_tpu_torch.parallel.sharded import ShardedDdcFm
+    dev = torch.device("cuda", 0)
+    distributed.initialize(f"127.0.0.1:{port}", world, rank, local_devices=PROC_SHARDS,
+                           device=dev)
+    mesh = make_mesh(time=world * PROC_SHARDS)
+    check(mesh.local_time == [rank * PROC_SHARDS + i for i in range(PROC_SHARDS)],
+          f"rank {rank} owns {mesh.local_time}")
+    ddc.build()
+    with open(os.path.join(work, "spec.json")) as f:
+        spec = json.load(f)
+    for case in cases.split(","):
+        res = {"case": case, "rank": rank, "shards": mesh.local_time}
+        src, fe = worker_source(work, dev, case)
+        if case in ("g", "h"):
+            ddc.LAUNCHES = ddc.LAUNCHES_C64 = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, _ = ShardedDdcFm(fe, mesh).process(src, spec.get("block",
+                                                                  constants.PROC_CHUNKSIZE))
+            res["wall_s"] = time.perf_counter() - t0
+            res["launches"] = ddc.LAUNCHES if case == "g" else ddc.LAUNCHES_C64
+            res["outputs"] = len(got)
+            res["n_diff"], res["max_diff"] = bit_diff(
+                got, np.load(os.path.join(work, f"{case}_ref.npy")))
+        elif case == "i":
+            ref = np.load(os.path.join(work, "i_ref.npz"))
+            for run in ("cold", "warm"):
+                dec = NoaaDecoder(src, OFFSET_HZ, device=dev, mesh=mesh)
+                ddc.LAUNCHES = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                useful = dec.useful
+                crude = dec.get_crude_sync()
+                img = dec.get_image()
+                acc = dec.get_accurate_sync(use_norm_correlate=True)
+                torch.cuda.synchronize()
+                res[f"{run}_wall_s"] = time.perf_counter() - t0
+            res["launches"] = ddc.LAUNCHES
+            res["stages"] = dec.stage_seconds
+            res["useful"] = useful
+            res["crude_equal"] = bool(np.array_equal(crude[0], ref["sync_a"])
+                                      and np.array_equal(crude[1], ref["sync_b"]))
+            same_shape = img.shape == ref["image"].shape
+            res["pixels_equal"] = float(np.mean(img == ref["image"])) if same_shape else 0.0
+            res["pixel_max_diff"] = (int(np.abs(img.astype(int) - ref["image"]).max())
+                                     if same_shape else 256)
+            res["acc_diff"] = [int(np.max(np.abs(np.subtract(acc[c], ref[k])), initial=0))
+                               if len(acc[c]) == len(ref[k]) else -1
+                               for c, k in ((0, "acc_a"), (4, "acc_b"))]
+        print("WORKER " + json.dumps(res), flush=True)
+    distributed.shutdown()
+
+
+def phase25_two_processes(ddc, dev, work: str) -> dict:
+    """(g)-(i) on a 4-shard `time` mesh over two processes, each owning two
+    shards that name this card (`parallel.distributed` over gloo, started
+    with `subprocess`): phase 18's bytes (K1), phase 19's complex64 capture
+    (K4) and phase 20's NOAA decode, each rank reading its own blocks from
+    the files in `work`; the one-process mesh over the same files runs
+    here first, for the wall. A rank that fails, or outlives
+    WORKER_TIMEOUT_S, fails the phase. Returns the launches and walls."""
+    from directdemod_tpu_torch import constants
+    from directdemod_tpu_torch.models.noaa import NoaaDecoder
+    from directdemod_tpu_torch.parallel import distributed
+    from directdemod_tpu_torch.parallel.sharded import ShardedDdcFm
+    blk = constants.PROC_CHUNKSIZE
+    with open(os.path.join(work, "spec.json"), "w") as f:
+        json.dump({"block": blk}, f)
+    one = {}
+    for case in ("g", "h"):
+        src, fe = worker_source(work, dev, case)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, _ = ShardedDdcFm(fe, card_mesh(dev)).process(src, blk)
+        one[case] = time.perf_counter() - t0
+        n_diff, _ = bit_diff(got, np.load(os.path.join(work, f"{case}_ref.npy")))
+        check(n_diff == 0, f"one-process mesh over the files ({case}): {n_diff} differ")
+    noaa, _ = worker_source(work, dev, "i")
+    dec = NoaaDecoder(noaa, OFFSET_HZ, device=dev, mesh=card_mesh(dev))
+    t0 = time.perf_counter()
+    dec.get_image()
+    dec.get_accurate_sync(use_norm_correlate=True)
+    torch.cuda.synchronize()
+    one["i"] = time.perf_counter() - t0
+    del got, dec
+    torch.cuda.empty_cache()
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    port = distributed.free_port()
+    env = dict(os.environ, PYTHONPATH=here)
+    t0 = time.perf_counter()
+    runs = distributed.launch(
+        [[os.path.abspath(__file__), "--worker", str(r), str(PROC_WORLD), str(port), work,
+          "g,h,i"] for r in range(PROC_WORLD)], timeout_s=WORKER_TIMEOUT_S, env=env, cwd=work)
+    t_launch = time.perf_counter() - t0
+    res = {}
+    for r, (code, text) in enumerate(runs):
+        check(code == 0, f"phase 25 rank {r} exit {code}:\n{text[-4000:]}")
+        for line in text.splitlines():
+            if line.startswith("WORKER "):
+                w = json.loads(line[len("WORKER "):])
+                res[(w["case"], w["rank"])] = w
+    check(len(res) == 3 * PROC_WORLD, f"phase 25 results {sorted(res)}")
+    out = {"one_process_wall_s": one, "launch_wall_s": t_launch}
+    checks = []                 # every case is printed before any check fails
+    for case, kernel in (("g", "K1"), ("h", "K4")):
+        ranks = [res[(case, r)] for r in range(PROC_WORLD)]
+        launches = [w["launches"] for w in ranks]
+        blocks = -(-worker_source(work, dev, case)[0].length // blk)
+        print(f"phase 25 ({case}): ShardedDdcFm on {PROC_WORLD} processes x {PROC_SHARDS} "
+              f"shards of the card, {ranks[0]['outputs']} outputs on each rank, "
+              f"{[w['n_diff'] for w in ranks]} not bit-equal to the one-process mesh; "
+              f"{kernel} launches by rank {launches} (sum {sum(launches)}, {blocks} blocks); "
+              f"wall by rank {[round(w['wall_s'], 3) for w in ranks]} s against "
+              f"{one[case]:.3f} s in one process on {card_line()}", flush=True)
+        checks += [(all(w["n_diff"] == 0 for w in ranks), f"({case}) outputs differ"),
+                   (all(n > 0 for n in launches) and sum(launches) == blocks,
+                    f"({case}) {kernel} launches {launches} for {blocks} blocks")]
+        out[f"{case}_launches"] = sum(launches)
+        out[f"{case}_wall_s"] = [w["wall_s"] for w in ranks]
+    ranks = [res[("i", r)] for r in range(PROC_WORLD)]
+    r0 = ranks[0]
+    print(f"phase 25 (i): NoaaDecoder on {PROC_WORLD} processes x {PROC_SHARDS} shards: "
+          f"rank 0 crude syncs equal {r0['crude_equal']}, {100 * r0['pixels_equal']:.3f} % "
+          f"of pixels equal (largest difference {r0['pixel_max_diff']}), accurate syncs "
+          f"A/B within {r0['acc_diff']} samples of the one-process mesh; warm wall by rank "
+          f"{[round(w['warm_wall_s'], 3) for w in ranks]} s (cold "
+          f"{[round(w['cold_wall_s'], 3) for w in ranks]}) against {one['i']:.3f} s in one "
+          f"process; stages by rank "
+          f"{[{k: round(v, 4) for k, v in w['stages'].items()} for w in ranks]}; K1 "
+          f"launches by rank {[w['launches'] for w in ranks]} on {card_line()}", flush=True)
+    checks += [(all(w["useful"] == 1 for w in ranks) and r0["crude_equal"],
+                "two-process NOAA: useful, crude syncs equal"),
+               (r0["pixels_equal"] >= 0.999 and r0["pixel_max_diff"] <= 1,
+                f"two-process NOAA image {r0['pixels_equal']} {r0['pixel_max_diff']}"),
+               (min(r0["acc_diff"]) >= 0 and max(r0["acc_diff"]) <= 1,
+                f"two-process NOAA accurate syncs {r0['acc_diff']}"),
+               (all(w["launches"] > 0 for w in ranks), "every rank launched K1 in the decode")]
+    for cond, what in checks:
+        check(cond, what)
+    out["i_launches"] = sum(w["launches"] for w in ranks)
+    out["i_wall_s"] = [w["warm_wall_s"] for w in ranks]
+    return out
+
+
+def two_process_smoke(n_lines: int = 240, fm_seconds: float = 60.0) -> dict:
+    """Phases 18-20 and 25 alone on shorter captures (a 2-minute NOAA pass,
+    a minute of FM: one wave and the blocks after it): the two-process mesh against the one-process one, for
+    iterating on `parallel/` without the phases before them. Run it on the
+    card as `python3 -c "import chip_smoke as s; s.two_process_smoke()"`."""
+    from directdemod_tpu_torch.models.frontend import DdcFm
+    from directdemod_tpu_torch.ops import ddc, design
+    check(torch.cuda.is_available(), "a CUDA device")
+    dev = torch.device("cuda", 0)
+    print(card_line(), flush=True)
+    ddc.build()
+    fe = DdcFm(FS, OFFSET_HZ, design.blackmanharris(151), 60_000)
+    raw, _ = synth_pass_bytes(n_lines, dev, seed=1)
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        phase18_sharded_bytes(ddc, fe, dev, raw, work)
+        phase19_run_sharded(ddc, dev, work, seconds=fm_seconds)
+        phase20_noaa_mesh(ddc, dev, raw, work)
+        del raw
+        out = phase25_two_processes(ddc, dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps({"two_process": out}), flush=True)
+    return out
+
+
 def k1k4_times(label: str = "k1k4") -> dict:
     """K1 and K4 alone on the main shapes, for iterating on their tile
     without the decodes: phase 3's and phase 6's K1 compares (J = 34 and
@@ -1855,26 +2091,35 @@ def main() -> int:
     fused_k4, bank_k4 = phase16_stream(ddc, dev)
     bank_k1, k1_3ch, bank_raw = phase17_bank(ddc, dev)
 
-    # the mesh slice, every shard on this card
-    sharded_k1, k1_mesh = phase18_sharded_bytes(ddc, fe, dev, noaa_raw)
-    sharded_k4 = phase19_run_sharded(ddc, dev)
-    noaa_mesh_k1, _ = phase20_noaa_mesh(ddc, dev, noaa_raw)
-    del noaa_raw
-    bank_mesh_k1 = phase21_bank_mesh(ddc, dev, bank_raw)
-    del bank_raw
-    fc_mesh_k3, mm_mesh_k3 = phase22_psk_mesh(dev, fc_raw, mm_raw)
-    del fc_raw, mm_raw
-    dry = phase23_dryrun(ddc, pll, dev)
-    phase24_mesh_cli(dev)
+    # the mesh slice, every shard on this card; `work` keeps phase 25's
+    # inputs and the one-process results it is held to
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        sharded_k1, k1_mesh = phase18_sharded_bytes(ddc, fe, dev, noaa_raw, work)
+        sharded_k4 = phase19_run_sharded(ddc, dev, work)
+        noaa_mesh_k1, _ = phase20_noaa_mesh(ddc, dev, noaa_raw, work)
+        del noaa_raw
+        bank_mesh_k1 = phase21_bank_mesh(ddc, dev, bank_raw)
+        del bank_raw
+        fc_mesh_k3, mm_mesh_k3 = phase22_psk_mesh(dev, fc_raw, mm_raw)
+        del fc_raw, mm_raw
+        dry = phase23_dryrun(ddc, pll, dev)
+        phase24_mesh_cli(dev)
+        procs = phase25_two_processes(ddc, dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     print(json.dumps({"kernels": [
         {"name": "ddc_fm_u8", "route": "cuda",
          "source": "directdemod_tpu_torch/csrc/ddc_fm_u8.cu",
          "replaces": "directdemod_tpu/ops/pallas_ddc.py:148",
-         "launches": noaa_k1 + afsk_k1 + bank_k1 + sharded_k1 + noaa_mesh_k1 + bank_mesh_k1,
+         "launches": (noaa_k1 + afsk_k1 + bank_k1 + sharded_k1 + noaa_mesh_k1 + bank_mesh_k1
+                      + procs["g_launches"] + procs["i_launches"]),
          "launches_by_path": {"noaa": noaa_k1, "afsk1200": afsk_k1,
                               "multichannel": bank_k1, "sharded_frontend": sharded_k1,
-                              "noaa_mesh": noaa_mesh_k1, "multichannel_mesh": bank_mesh_k1},
+                              "noaa_mesh": noaa_mesh_k1, "multichannel_mesh": bank_mesh_k1,
+                              "sharded_frontend_2proc": procs["g_launches"],
+                              "noaa_mesh_2proc": procs["i_launches"]},
          **k1, "max_abs_err": max(k1["max_abs_err"], k1_92["max_abs_err"],
                                   k4["j409_k1"]["max_abs_err"], k1_3ch["max_abs_err"],
                                   k1_mesh["max_abs_err"]),
@@ -1888,10 +2133,12 @@ def main() -> int:
         {"name": "ddc_fm_c64", "route": "cuda",
          "source": "directdemod_tpu_torch/csrc/ddc_fm_c64.cu",
          "replaces": "directdemod_tpu/ops/pallas_ddc.py:31",
-         "launches": fm_k4 + fused_k4 + bank_k4 + sharded_k4 + dry["k4_launches"],
+         "launches": (fm_k4 + fused_k4 + bank_k4 + sharded_k4 + dry["k4_launches"]
+                      + procs["h_launches"]),
          "launches_by_path": {"fm": fm_k4, "stream_fused": fused_k4,
                               "multichannel": bank_k4, "stream_sharded": sharded_k4,
-                              "dryrun": dry["k4_launches"]},
+                              "dryrun": dry["k4_launches"],
+                              "stream_sharded_2proc": procs["h_launches"]},
          **{f: k4[34][f] for f in ("ms", "plain_ms", "library_ms", "bound_ms",
                                    "bound_by")},
          "max_abs_err": max(v["max_abs_err"] for key, v in k4.items()
@@ -1933,4 +2180,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:
+        rank, world, port, work, cases = sys.argv[2:7]
+        mesh_worker(int(rank), int(world), int(port), work, cases)
+        sys.exit(0)
     sys.exit(main())

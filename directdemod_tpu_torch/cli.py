@@ -93,7 +93,11 @@ def main(argv=None, device=None) -> int:
     mesh = None
     mesh_n = next((int(v) for k, v in optlist if k == "--mesh"), 0)
     if mesh_n > 1:
+        from .parallel import distributed
         from .parallel.mesh import make_mesh, visible_devices
+        if distributed.world_size() > 1:
+            raise ValueError("--mesh builds a mesh of one process; the CLI does "
+                             "not run across processes")
         mesh = make_mesh(time=mesh_n, channel=1, devices=visible_devices(device))
     resident = "--resident" in flags
     corr_freq_shift = "--freqshift" in flags

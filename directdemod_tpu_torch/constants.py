@@ -17,6 +17,10 @@ PROC_CHUNKSIZE = 20_000_000     # samples per stream block. Block boundaries are
                                 # part of the numeric contract: the strict
                                 # resample is applied per block.
 
+# ---------------------------------------------------------------- source kinds
+SOURCE_IQWAV = 0
+SOURCE_IQDAT = 1
+
 # ---------------------------------------------------------------- filter kinds (ops/filters.butter)
 FLT_LP = 0
 FLT_HP = 1

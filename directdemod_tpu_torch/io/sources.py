@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .. import constants
+from ..device import resolve
 
 log = logging.getLogger(__name__)
 
@@ -45,14 +46,21 @@ def _wav_data_offset(path: str) -> tuple[int, int, int]:
 
 class _Windowed:
     """The `limit` window shared by every source: reads are relative to
-    `_offset` and at most `length` samples long."""
+    `_offset` and at most `length` samples long. `source_type` and
+    `sourceType` give the kind (`constants.SOURCE_IQWAV` / `SOURCE_IQDAT`),
+    as the reference's property surface does (ref source.py:18-47)."""
 
     _total: int
+    source_type = constants.SOURCE_IQDAT
 
     def _init_window(self, total: int) -> None:
         self._total = int(total)
         self._offset = 0
         self._limit = self._total
+
+    @property
+    def sourceType(self) -> int:
+        return self.source_type
 
     @property
     def length(self) -> int:
@@ -64,6 +72,9 @@ class _Windowed:
         self._offset = init_offset if init_offset is not None else 0
         self._limit = (final_limit - self._offset if final_limit is not None
                        else self._total)
+
+    # the reference's name
+    limitData = limit
 
     def _span(self, from_index: int, to_index: int | None) -> tuple[int, int]:
         if to_index is None:
@@ -104,12 +115,26 @@ class _HostBytes(_Windowed):
 class IQWav(_HostBytes):
     """SDRSharp IQ.wav source; the rate comes from the header unless given."""
 
+    source_type = constants.SOURCE_IQWAV
+
     def __init__(self, filename: str, given_samp_freq: int | None = None):
         off, rate, nch = _wav_data_offset(filename)
         if nch not in (None, 2):
             raise ValueError(f"{filename}: expected 2-channel IQ wav, got {nch}")
         data = np.memmap(filename, dtype=np.uint8, mode="r", offset=off)
         super().__init__(data, given_samp_freq or rate)
+
+
+class IQWavAlt(_HostBytes):
+    """The header-skipping WAV reader of the reference's Experiment-2
+    variant (ref source.py:237-324): the standard 44-byte header is skipped
+    unread, and the rate defaults to the SDR's."""
+
+    source_type = constants.SOURCE_IQWAV
+
+    def __init__(self, filename: str, given_samp_freq: int | None = None):
+        data = np.memmap(filename, dtype=np.uint8, mode="r", offset=44)
+        super().__init__(data, given_samp_freq or int(constants.IQ_SDRSAMPRATE))
 
 
 class IQDat(_HostBytes):
@@ -149,6 +174,13 @@ class DeviceRawSource(_Windowed):
     def from_host_bytes(cls, raw: np.ndarray, samp_freq: int, device):
         return cls(torch.from_numpy(np.array(raw, dtype=np.uint8)).to(device),
                    samp_freq)
+
+    @classmethod
+    def from_file(cls, path: str, samp_freq: int, device=None):
+        """A raw .dat file's bytes, held on `device` (the port's device
+        rule, `device.resolve`)."""
+        return cls.from_host_bytes(np.fromfile(path, dtype=np.uint8), samp_freq,
+                                   resolve(device))
 
     @property
     def device(self) -> torch.device:

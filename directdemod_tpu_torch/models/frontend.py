@@ -104,6 +104,33 @@ class DdcFm:
         are those of the blocked stream, bit for bit."""
         return DdcFmStream(self, raw.device).step(raw[: 2 * n], 0)
 
+    # ------------------------------------------------ the functional block API
+    def init_state(self, dtype=torch.complex64, device=None) -> tuple:
+        """The state before block 0 of the reference's functional block
+        API (`init_state` / `process_block`): (history, c_prev), the
+        virtual all-ones NCO history, (K-1,), and c_prev, (1,), in `dtype`
+        on `device` (the port's device rule)."""
+        dev = resolve(device)
+        _, _, rot, hist0 = self.consts(dev, dtype)
+        return hist0.clone(), torch.zeros(rot.shape[0], dtype=dtype, device=dev)
+
+    def block_out_len(self, start: int, n: int) -> int:
+        """Outputs of an n-sample block at global sample `start`."""
+        return rs.decim_count(n, rs.decim_phase(start, self.stride), self.stride)
+
+    def process_block(self, x: torch.Tensor, state: tuple, start: int
+                      ) -> tuple[torch.Tensor, tuple]:
+        """One block (complex, or raw uint8 bytes) at global sample
+        `start` from `state` -> (its output, the next state): a
+        `DdcFmStream.step` from the state's carry, on the state's device in
+        its dtype, so a float32 block on a card runs K1 or K4 as the stream
+        does. The state passed in is not changed."""
+        hist, c_prev = state
+        stream = DdcFmStream(self, c_prev.device, c_prev.dtype)
+        stream.hist, stream.c_prev = hist, c_prev.reshape(-1)
+        y = stream.step(x, start)
+        return y, (stream.hist, stream.c_prev.reshape(c_prev.shape))
+
     def process(self, source, block_size: int = constants.PROC_CHUNKSIZE,
                 device=None, dtype=torch.complex64) -> tuple[np.ndarray, int]:
         """Blocked run over a whole source on `device` (the port's device

@@ -41,6 +41,8 @@ class MultiDdcFm(DdcFm):
         self.out_rate = self.fes[0].out_rate
         self.mesh = mesh
         if mesh is not None:
+            from ..parallel.mesh import require_one_process
+            require_one_process(mesh, "MultiDdcFm's channel mesh")
             nch = mesh.shape["channel"]
             if len(self.fes) % nch:
                 raise ValueError(
@@ -53,6 +55,12 @@ class MultiDdcFm(DdcFm):
     @property
     def channels(self) -> int:
         return len(self.fes)
+
+    def init_state(self, dtype=torch.complex64, device=None) -> tuple:
+        """(history, c_prev) before block 0: (C, K-1) and (C, 1), as the
+        reference's bank gives them."""
+        hist, c_prev = super().init_state(dtype, device)
+        return hist, c_prev[:, None]
 
     def process(self, source, block_size: int = constants.PROC_CHUNKSIZE,
                 device=None, dtype=torch.complex64) -> tuple[np.ndarray, int]:

@@ -288,18 +288,30 @@ class NoaaDecoder(TimedDecoder):
         shards (the windows are independent: nothing passes between the
         shards). The batch is padded to a whole number of rows a shard with
         copies of its first row (zero rows would put NaNs through the
-        normalized correlation), dropped after."""
-        devs = self.mesh.time_devices
+        normalized correlation), dropped after. Each shard walks its own
+        rows, so on a mesh that spans processes only the detections are
+        gathered (rows (sync, quality, time sync or NaN)), not the rows'
+        envelope and correlation (about 0.9 MB a window)."""
+        from ..parallel.mesh import gather_host
+        mesh = self.mesh
+        devs = mesh.time_devices
+        ndev = len(devs)
         nw = batch.shape[0]
-        pad = (-nw) % len(devs)
+        pad = (-nw) % ndev
         if pad:
             batch = torch.cat([batch, batch[:1].expand(pad, -1)])
-        per = batch.shape[0] // len(devs)
-        parts = [_windows_env_cor(batch[i * per:(i + 1) * per].to(d), nj.to(d),
-                                  offset, fs, use_norm) for i, d in enumerate(devs)]
-        env = torch.cat([e.cpu() for e, _ in parts])[:nw]
-        cor = torch.cat([c.cpu() for _, c in parts])[:nw]
-        return _walk(env.numpy(), cor.numpy(), nj.shape[0], fs, starts)
+        per = batch.shape[0] // ndev
+        found = {}
+        for i in mesh.local_time:
+            env, cor = _windows_env_cor(batch[i * per:(i + 1) * per].to(devs[i]),
+                                        nj.to(devs[i]), offset, fs, use_norm)
+            rows = _walk(env.cpu().numpy(), cor.cpu().numpy(), nj.shape[0], fs,
+                         starts[i * per:min((i + 1) * per, nw)])
+            found[i] = np.array([(p, q, np.nan if t is None else t) for p, q, t in rows],
+                                dtype=np.float64).reshape(-1, 3)
+        found = gather_host(mesh, found)
+        return [(int(p), float(q), None if np.isnan(t) else float(t))
+                for i in range(ndev) for p, q, t in found[i]]
 
     def _windows(self, starts: list, n_win: int) -> torch.Tensor:
         """(len(starts), n_win) complex64 IQ windows on the device: gathered

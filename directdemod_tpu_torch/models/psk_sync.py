@@ -262,6 +262,9 @@ class PskSyncDetector(TimedDecoder):
         self.freq_fn = freq_fn      # optional per-chunk Doppler freq array fn
         self.block_size = int(block_size)
         self.mesh = mesh
+        if mesh is not None:
+            from ..parallel.mesh import require_one_process
+            require_one_process(mesh, f"{type(self).__name__}'s segment scan")
         if n_segments is None and mesh is not None:
             n_segments = int(mesh.shape["time"])
         self.n_segments = int(n_segments) if n_segments else 1

@@ -1,10 +1,10 @@
 """Host-side filter design (pure NumPy, float64).
 
-Copy of the part of `directdemod_tpu/ops/design.py` the port needs (lines
-28-458 and 460-484 there): the Blackman-Harris, Hamming and Gaussian
-windows, the boxcar, the Butterworth zeros/poles/gain and second-order
-sections, the Remez (Parks-McClellan) exchange with its least-squares
-fallback, and `lfilter_zi`. The JAX package cannot be imported without
+Copy of `directdemod_tpu/ops/design.py`: the Blackman-Harris, Hamming and
+Gaussian windows, the boxcar, the Butterworth (b, a), zeros/poles/gain and
+second-order sections, the Remez (Parks-McClellan) exchange with its
+least-squares fallback, `lfilter_zi`, `lfiltic` and
+`step_history_equivalent`. The JAX package cannot be imported without
 importing jax, so the port carries its own copy; tests hold it equal to the
 reference.
 """
@@ -65,6 +65,16 @@ def _poly_from_roots(roots: np.ndarray) -> np.ndarray:
     for r in roots:
         p = np.convolve(p, np.array([1.0, -r]))
     return p
+
+
+def butter(order: int, wn, btype: str = "lowpass") -> tuple[np.ndarray, np.ndarray]:
+    """Digital Butterworth (b, a) via the bilinear transform of the analog
+    prototype; `wn` is normalized to Nyquist (scalar for lowpass/highpass,
+    a pair for bandpass/bandstop), as scipy.signal.butter takes it."""
+    zd, pd, kd = butter_zpk(order, wn, btype)
+    b = np.real(_poly_from_roots(zd)) * kd
+    a = np.real(_poly_from_roots(pd))
+    return b, a
 
 
 def butter_zpk(order: int, wn, btype: str = "lowpass"):
@@ -452,3 +462,31 @@ def lfilter_zi(b, a) -> np.ndarray:
     A[:-1, 1:] = np.eye(n - 2)
     B = b[1:] - a[1:] * b[0]
     return np.linalg.solve(np.eye(n - 1) - A, B)
+
+
+def lfiltic(b, a, y, x=None) -> np.ndarray:
+    """Initial DF2T state from past outputs y and past inputs x (matches
+    scipy.signal.lfiltic)."""
+    b = np.atleast_1d(np.asarray(b, dtype=np.float64))
+    a = np.atleast_1d(np.asarray(a, dtype=np.float64))
+    n = max(len(a), len(b))
+    a = np.pad(a, (0, n - len(a)))
+    b = np.pad(b, (0, n - len(b)))
+    m = n - 1
+    y = np.asarray(y)[:m]
+    x = np.zeros(0) if x is None else np.asarray(x)[:m]
+    zi = np.zeros(m, dtype=np.result_type(y.dtype, np.float64))
+    for i in range(m):
+        for k in range(i + 1, n):
+            if k - i - 1 < len(x):
+                zi[i] += b[k] * x[k - i - 1]
+            if k - i - 1 < len(y):
+                zi[i] -= a[k] * y[k - i - 1]
+    return zi
+
+
+def step_history_equivalent(ntaps: int) -> np.ndarray:
+    """The FIR input history equivalent to seeding with `lfilter_zi`: for a
+    pure FIR the step steady state is what an all-ones past input leaves,
+    so the streams start their FIR histories at 1.0 (ref filters.py:45)."""
+    return np.ones(ntaps - 1, dtype=np.float64)

@@ -91,6 +91,16 @@ class IirFilter:
             wn = [cutoff_a / (0.5 * fs), cutoff_b / (0.5 * fs)]
         return IirFilter(design.butter_sos(order, wn, btype=kind), block)
 
+    @staticmethod
+    def from_ba(b, a, block: int = 4096) -> "IirFilter":
+        """One section from (b, a) polynomials of order at most 2 (higher
+        orders go through `design_butter`'s second-order sections)."""
+        if max(len(b), len(a)) > 3:
+            raise ValueError("use design_butter / SOS for order > 2")
+        b = np.pad(np.asarray(b, dtype=np.float64), (0, 3 - len(b)))
+        a = np.pad(np.asarray(a, dtype=np.float64), (0, 3 - len(a)))
+        return IirFilter(np.concatenate([b, a])[None, :], block)
+
     @property
     def n_sections(self) -> int:
         return self.sos.shape[0]
@@ -112,6 +122,10 @@ class IirFilter:
             states.append(design.lfilter_zi(s[:3], s[3:]) * gain_in)
             gain_in *= float(np.sum(s[:3]) / np.sum(s[3:]))
         return torch.as_tensor(np.concatenate(states), dtype=dtype, device=device)
+
+    def initial_state_zero(self, dtype=torch.float32, device=None) -> torch.Tensor:
+        """The all-zero state (a filter at rest)."""
+        return torch.zeros(2 * self.n_sections, dtype=dtype, device=device)
 
     def _consts(self, L: int) -> list:
         if L not in self._consts_cache:

@@ -593,6 +593,8 @@ def symbol_scan_segments(p: PskParams, x: torch.Tensor, sync, sync1,
         _, syms, counts, trunc = _scan(p, x, state, sync, sync1, scan_from,
                                        seg_len)
     else:
+        from ..parallel.mesh import require_one_process
+        require_one_process(mesh, "symbol_scan_segments")
         devs = mesh.time_devices
         if n_segments % len(devs):
             raise ValueError(f"{n_segments} segments are not divisible by the "

@@ -19,3 +19,10 @@ def iq_u8_to_complex(raw: torch.Tensor, dtype=torch.complex64) -> torch.Tensor:
     real = torch.float64 if dtype == torch.complex128 else torch.float32
     return torch.view_as_complex(pairs.to(real) - IQ_U8_OFFSET)
 
+
+def supports_raw(source) -> bool:
+    """True when `source` serves raw interleaved uint8 byte slices (host
+    `read_raw` or device `read_raw_device`)."""
+    return callable(getattr(source, "read_raw", None)) \
+        or callable(getattr(source, "read_raw_device", None))
+

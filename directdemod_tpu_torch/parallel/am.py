@@ -14,12 +14,14 @@ import numpy as np
 import torch
 
 from ..ops import am as am_ops
-from .mesh import Mesh
+from .mesh import Mesh, gather_host
 
 
 def sharded_envelope_blocked(mesh: Mesh, x: np.ndarray, block: int) -> np.ndarray:
     """`ops.am.envelope_blocked` over `mesh`'s `time` shards (host in and
-    out)."""
+    out; on a mesh that spans processes each process runs its own shards'
+    rows, shard 0's owner the ragged block, and every process returns the
+    whole envelope)."""
     devs = mesh.time_devices
     ndev = len(devs)
     n = len(x)
@@ -27,7 +29,7 @@ def sharded_envelope_blocked(mesh: Mesh, x: np.ndarray, block: int) -> np.ndarra
         return np.zeros(0, dtype=np.float32)
     x = torch.as_tensor(np.ascontiguousarray(x))
     nfull = n // block
-    out = []
+    parts = {}
     if nfull:
         rows = x[: nfull * block].reshape(nfull, block)
         pad_rows = (-nfull) % ndev
@@ -36,9 +38,14 @@ def sharded_envelope_blocked(mesh: Mesh, x: np.ndarray, block: int) -> np.ndarra
             # normalized FFT chain), dropped below
             rows = torch.cat([rows, rows[:1].expand(pad_rows, -1)])
         per = rows.shape[0] // ndev
-        env = torch.cat([am_ops.envelope(rows[i * per:(i + 1) * per].to(d)).cpu()
-                         for i, d in enumerate(devs)])
-        out.append(env[:nfull].reshape(-1))
-    if n - nfull * block:
-        out.append(am_ops.envelope(x[nfull * block:].to(devs[0])).cpu())
-    return torch.cat(out).numpy()
+        for i in mesh.local_time:
+            parts[i] = am_ops.envelope(rows[i * per:(i + 1) * per].to(devs[i])).cpu().numpy()
+    if n - nfull * block and mesh.is_local(0):
+        parts[ndev] = am_ops.envelope(x[nfull * block:].to(devs[0])).cpu().numpy()
+    parts = gather_host(mesh, parts)
+    out = []
+    if nfull:
+        out.append(np.concatenate([parts[i] for i in range(ndev)])[:nfull].reshape(-1))
+    if ndev in parts:
+        out.append(parts[ndev])
+    return np.concatenate(out)

@@ -38,6 +38,7 @@ from ..ops.pll import PskParams, symbol_scan_segments
 from .am import sharded_envelope_blocked
 from .correlate import sharded_find_sync_peaks
 from .iir import sharded_zero_phase
+from . import distributed
 from .mesh import make_mesh
 from .sharded import ShardedDdcFm
 
@@ -70,6 +71,9 @@ def dryrun(n_devices: int, chunk_len: int = 8192, device=None,
         def __exit__(self, *exc):
             stage_s[self.name] = round(_time.perf_counter() - self.t0, 3)
 
+    if distributed.world_size() > 1:
+        raise ValueError("dryrun builds a mesh of one process; it does not run "
+                         "across processes")
     devices = (list(devices)[:n_devices] if devices is not None
                else [resolve(device)] * n_devices)
     dev = torch.device(devices[0])

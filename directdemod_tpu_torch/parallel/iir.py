@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..ops.iir import IirFilter, _biquad_state_space
-from .mesh import Mesh, all_gather
+from .mesh import Mesh, all_gather, gather_host
 
 
 @lru_cache(maxsize=32)
@@ -60,12 +60,14 @@ def _mpow(filt: IirFilter, n_local: int, ndev: int) -> list:
 
 
 def _sharded_lfilter(mesh: Mesh, filt: IirFilter, x2d: torch.Tensor,
-                     zi: np.ndarray) -> tuple[list, np.ndarray]:
+                     zi: np.ndarray) -> tuple[dict, dict]:
     """x2d: (ndev, n_local) on the host, row i for time shard i; zi: the
     initial state (2 * n_sections,) of the whole stream. Returns (each
-    shard's output on its device, the last shard's end state)."""
-    devs = mesh.time_devices
+    local shard's output on the host, by shard; the last shard's end state
+    under the key ndev, where that shard is local)."""
+    devs, ranks = mesh.time_devices, mesh.time_ranks
     ndev = len(devs)
+    mine = mesh.local_time
     n_local = int(x2d.shape[1])
     L = min(filt.block, max(16, n_local))
     np_last = n_local - (-(-n_local // L) - 1) * L
@@ -73,45 +75,53 @@ def _sharded_lfilter(mesh: Mesh, filt: IirFilter, x2d: torch.Tensor,
     consts_tail = consts if np_last == L else filt._consts(np_last)
     sec = _shard_consts(filt, n_local)
     pows = _mpow(filt, n_local, ndev)
-    ys = [row.to(d) for row, d in zip(x2d, devs)]
-    rdt = ys[0].dtype
+    ys = {pos: x2d[pos].to(devs[pos]) for pos in mine}
+    rdt = x2d.dtype
     zis = np.asarray(zi, dtype=np.float64).reshape(filt.n_sections, 2)
     z_last = []
     for i in range(filt.n_sections):
-        parts = [filt._apply_section(y, torch.zeros(2, dtype=rdt, device=y.device),
-                                     consts[i], consts_tail[i], np_last) for y in ys]
-        gathered = all_gather([g for _, g in parts], devs)        # (ndev, 2) each
-        new = []
-        for pos, ((y0, g), gg) in enumerate(zip(parts, gathered)):
+        parts = {pos: filt._apply_section(y, torch.zeros(2, dtype=rdt, device=y.device),
+                                          consts[i], consts_tail[i], np_last)
+                 for pos, y in ys.items()}
+        gathered = all_gather([parts[pos][1] if pos in parts else None
+                               for pos in range(ndev)], devs, ranks)   # (ndev, 2) each
+        for pos, (y0, g) in parts.items():
             def t(a, d=y0.device):
                 return torch.as_tensor(a, dtype=rdt, device=d)
+            gg = gathered[pos]
             # s_in = zi . M^pos + sum_{j<pos} g_j . M^(pos-1-j)
             s_in = t(zis[i]) @ t(pows[i][pos])
             for j in range(pos):
                 s_in = s_in + gg[j] @ t(pows[i][pos - 1 - j])
-            new.append(y0 + t(sec[i][0]) @ s_in)
+            ys[pos] = y0 + t(sec[i][0]) @ s_in
             if pos == ndev - 1:
                 z_last.append((s_in @ t(sec[i][1]) + g).cpu())
-        ys = new
-    return ys, torch.stack(z_last).reshape(-1).numpy()
+    out = {pos: y.cpu().numpy() for pos, y in ys.items()}
+    if z_last:
+        out[ndev] = torch.stack(z_last).reshape(-1).numpy()
+    return out
 
 
 def sharded_lfilter(mesh: Mesh, filt: IirFilter, x: np.ndarray, zi: np.ndarray
                     ) -> tuple[np.ndarray, np.ndarray]:
     """Exact lfilter of a long 1-D host signal over `mesh`'s `time` shards,
     the ragged tail (len(x) % ndev samples) sequentially from the carried
-    state. Returns (y, final_state) on the host."""
+    state. Returns (y, final_state) on the host; on a mesh that spans
+    processes each process filters its own shards, the shards' outputs and
+    the end state are gathered, and every process runs the tail."""
     ndev = mesh.shape["time"]
     n = len(x)
     n_local = n // ndev
     main = n_local * ndev
-    dev0 = mesh.time_devices[0]
+    dev0 = mesh.time_devices[mesh.local_time[0]]
     x = torch.as_tensor(np.ascontiguousarray(x))
     if n_local == 0:
         y, zf = filt.apply(x.to(dev0), torch.as_tensor(zi, dtype=x.dtype, device=dev0))
         return y.cpu().numpy(), zf.cpu().numpy()
-    ys, zf = _sharded_lfilter(mesh, filt, x[:main].reshape(ndev, n_local), zi)
-    y = torch.cat([part.cpu() for part in ys])
+    parts = gather_host(mesh, _sharded_lfilter(mesh, filt,
+                                               x[:main].reshape(ndev, n_local), zi))
+    zf = parts[ndev]
+    y = torch.from_numpy(np.concatenate([parts[pos] for pos in range(ndev)]))
     if main < n:
         yt, zt = filt.apply(x[main:].to(dev0),
                             torch.as_tensor(zf, dtype=x.dtype, device=dev0))

@@ -25,6 +25,15 @@ card the kernels compute each output by the same sequence of operations
 whatever block it falls in, so the two agree bit for bit. The blocks come
 from the stream's own feed (`io.feeder.BlockFeeder`: a source with bytes on
 a device is sliced there) and go to their shard's device.
+
+On a mesh that spans processes (`parallel.distributed`) each process reads
+only its own blocks of each wave; the halo of a process's first shard comes
+from the previous process's last shard, the carry between waves from the
+last process to the first, and the remainder runs on shard 0's owner. A
+shard's arithmetic is the same in one process or several: only the
+transport of its halo differs, so the outputs keep their bits. The outputs
+are gathered (`mesh.gather_host`) so that every process returns all of
+them.
 """
 from __future__ import annotations
 
@@ -35,7 +44,7 @@ from ..io.feeder import BlockFeeder
 from ..models.frontend import DdcFm, DdcFmStream
 from ..ops import ddc, fir, resample as rs, unpack
 from ..stream.plan import plan_blocks
-from .mesh import Mesh, ppermute
+from .mesh import Mesh, gather_host, ppermute
 
 
 class ShardedDdcFm:
@@ -79,45 +88,84 @@ class ShardedDdcFm:
             return c[1:], c[-1:]
         return torch.angle(c[1:] * c[:-1].conj() * rot), c[-1:]
 
+    def _wave(self, chunks: list, starts: list, carry_tail, dtype=torch.complex64
+              ) -> tuple[list, torch.Tensor | None]:
+        """One wave, a block a `time` shard: `chunks[i]` is shard i's block
+        on its device (bytes or samples; None for another process's shard,
+        as `distributed.global_wave` gives them), `starts[i]` its first
+        sample, `carry_tail` the last `halo` samples (in the blocks' form)
+        of the block before the wave, on shard 0's owner (None when the
+        wave starts the capture). One ring `ppermute` hands each shard the
+        tail of the shard before it; shard 0 receives the wave's last tail,
+        which is the next wave's carry. Returns (each local shard's
+        (outputs, c of its last output), None for another process's shard;
+        the next wave's carry on shard 0's owner, else None)."""
+        mesh = self.mesh
+        devs = mesh.time_devices
+        ndev = len(devs)
+        like = next(x for x in chunks if x is not None)
+        per = 2 if like.dtype == torch.uint8 else 1
+        tails = [None if x is None else x[-per * self.halo:] for x in chunks]
+        halos = ppermute(tails, [(i, (i + 1) % ndev) for i in range(ndev)], devs,
+                         mesh.time_ranks)
+        carry, halos[0] = halos[0], carry_tail
+        outs = [None] * ndev
+        for i, (s, x, h) in enumerate(zip(starts, chunks, halos)):
+            if x is None:
+                continue
+            if s == 0:
+                first = DdcFmStream(self.fe, x.device, dtype)
+                outs[i] = (first.step(x, 0), first.c_prev)
+            else:
+                outs[i] = self._chunk(x, h, s, dtype)
+        return outs, carry
+
     def process(self, source, block_size: int, dtype=torch.complex64
                 ) -> tuple[np.ndarray, int]:
         """Wave-parallel run over the whole source; the outputs (on the
-        host) and the output rate of `DdcFm.process` on the same blocks."""
+        host) and the output rate of `DdcFm.process` on the same blocks.
+        On a mesh that spans processes each process reads only its own
+        blocks, and every process returns the whole output."""
         if block_size < self.halo:
             raise ValueError(f"block_size {block_size} is shorter than the "
                              f"halo of {self.halo} samples")
         fe = self.fe
         k = fe.ntaps
-        devs = self.mesh.time_devices
+        mesh = self.mesh
+        devs = mesh.time_devices
         ndev = len(devs)
+        mine = mesh.local_time
         plan = plan_blocks(source.length, block_size)
         # the whole blocks lead the plan; the waves take all they can
         n_waves = sum(e - s == block_size for s, e in plan) // ndev
-        feed = iter(BlockFeeder(source, device=devs[0], dtype=dtype, blocks=plan))
-        outs: list = []
-        tail = c_last = None
-        for w in range(n_waves):
-            wave = [next(feed) for _ in devs]
-            chunks = [x.to(d) for (_, _, x), d in zip(wave, devs)]
-            per = 2 if chunks[0].dtype == torch.uint8 else 1
-            tails = [x[-per * self.halo:] for x in chunks]
-            halos = ppermute(tails, [(i, i + 1) for i in range(ndev - 1)], devs)
-            if w:
-                halos[0] = tail.to(devs[0], copy=True)
-            for (s, _, _), x, h in zip(wave, chunks, halos):
-                if s == 0:
-                    first = DdcFmStream(fe, x.device, dtype)
-                    y = first.step(x, 0)
-                    c_last = first.c_prev
-                else:
-                    y, c_last = self._chunk(x, h, s, dtype)
-                outs.append(y.cpu())
-            tail = tails[-1]
+        waves = [plan[w * ndev:(w + 1) * ndev] for w in range(n_waves)]
+        feed = iter(BlockFeeder(source, device=devs[mine[0]], dtype=dtype,
+                                blocks=[wave[i] for wave in waves for i in mine]))
+        outs: dict = {}                 # block index -> host output
+        carry = None
+        for w, wave in enumerate(waves):
+            chunks = [None] * ndev
+            for i in mine:
+                chunks[i] = next(feed)[2].to(devs[i])
+            res, carry = self._wave(chunks, [s for s, _ in wave], carry, dtype)
+            for i in mine:
+                outs[w * ndev + i] = res[i][0].cpu().numpy()
 
-        # the blocks after the last whole wave, sequentially
-        stream = DdcFmStream(fe, devs[0], dtype)
-        if n_waves:
-            stream.hist = tail[-per * (k - 1):].to(devs[0], copy=True)
-            stream.c_prev = c_last.to(devs[0])
-        outs += [stream.step(x, s).cpu() for s, _, x in feed]
-        return torch.cat(outs).numpy(), fe.out_rate
+        # the blocks after the last whole wave, sequentially on shard 0's
+        # owner, from the last wave's history and c
+        rest = plan[n_waves * ndev:]
+        if rest:
+            c_last = (ppermute([None if r is None else r[1] for r in res],
+                               [(ndev - 1, 0)], devs, mesh.time_ranks)[0]
+                      if n_waves else None)
+            if mesh.is_local(0):
+                stream = DdcFmStream(fe, devs[0], dtype)
+                if n_waves:
+                    per = 2 if carry.dtype == torch.uint8 else 1
+                    stream.hist = carry[-per * (k - 1):].clone()
+                    stream.c_prev = c_last
+                for b, (s, _, x) in enumerate(BlockFeeder(source, device=devs[0],
+                                                          dtype=dtype, blocks=rest)):
+                    outs[n_waves * ndev + b] = stream.step(x, s).cpu().numpy()
+        outs = gather_host(mesh, outs)
+        return np.concatenate([outs[b] for b in sorted(outs)]), fe.out_rate

@@ -96,7 +96,9 @@ class Stream:
         if fe is None:
             raise ValueError("run_sharded requires a shift->FIR->bw_limit"
                              "[->fm_demod] chain")
+        from ..parallel.mesh import require_one_process
         from ..parallel.sharded import ShardedDdcFm
+        require_one_process(mesh, "Stream.run_sharded")
         return ShardedDdcFm(fe, mesh).process(self.source, block_size,
                                               dtype=self.dtype)
 

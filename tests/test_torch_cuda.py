@@ -793,3 +793,35 @@ def test_mesh_naming_the_card_twice(dev):
     assert g[0].device == dev and torch.equal(g[0][1], a + 1)
     with pytest.raises(ValueError, match="2x1 mesh needs 2 devices, have 1"):
         pmesh.make_mesh(time=2)
+
+
+def test_two_processes_on_the_card_equal_one_process(dev, tmp_path):
+    """The mesh over two processes (gloo on localhost, `chip_smoke.py
+    --worker`), each owning two `time` shards that name the card: K1 over
+    raw bytes that each rank reads from a .dat file, three waves and two
+    blocks after them (on rank 0), every output on both ranks bit for bit
+    the one-process 4-shard run, and K1 launched by both ranks."""
+    import json
+    from directdemod_tpu_torch.parallel import distributed
+    from directdemod_tpu_torch.parallel.sharded import ShardedDdcFm
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    raw, _ = synth_pass_bytes(40, dev, seed=4)
+    raw.cpu().numpy().tofile(tmp_path / "noaa.dat")
+    blk = 3_000_000
+    want, _ = ShardedDdcFm(_fe(60000), _card_mesh(dev)).process(
+        sources.IQDat(str(tmp_path / "noaa.dat"), FS), blk)
+    np.save(tmp_path / "g_ref.npy", want)
+    (tmp_path / "spec.json").write_text(json.dumps({"block": blk}))
+    port = str(distributed.free_port())
+    runs = distributed.launch(
+        [[os.path.join(root, "chip_smoke.py"), "--worker", str(r), "2", port,
+          str(tmp_path), "g"] for r in range(2)],
+        timeout_s=300, env=dict(os.environ, PYTHONPATH=root), cwd=str(tmp_path))
+    for code, text in runs:
+        assert code == 0, text[-3000:]
+    res = [json.loads(line[len("WORKER "):]) for _, text in runs
+           for line in text.splitlines() if line.startswith("WORKER ")]
+    assert [(w["rank"], w["n_diff"], w["outputs"]) for w in res] == \
+        [(0, 0, len(want)), (1, 0, len(want))]
+    launches = [w["launches"] for w in res]
+    assert min(launches) > 0 and sum(launches) == -(-(raw.shape[0] // 2) // blk)

@@ -1,8 +1,9 @@
 """The PyTorch port imports torch and never jax: every module of the package
 (the fourth slice's `device`, `models.fm`, `models.multichannel`,
-`ops.filters` and `stream.*`, and the ninth slice's `parallel.*` and
-`models.geo` among them), and the chip smoke script, import
-in a fresh interpreter without loading jax."""
+`ops.filters` and `stream.*`, the ninth slice's `parallel.*` and
+`models.geo`, and the tenth slice's `parallel.distributed` among them), and
+the chip smoke script, whose `--worker` mode runs the two-process mesh on
+the card, import in a fresh interpreter without loading jax."""
 import os
 import subprocess
 import sys
@@ -22,8 +23,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 new = {"directdemod_tpu_torch." + m for m in (
     "device", "models.fm", "models.multichannel", "ops.filters", "stream.api",
     "stream.checkpoint", "stream.pipeline", "stream.plan", "models.geo",
-    "parallel", "parallel.am", "parallel.correlate", "parallel.dryrun",
-    "parallel.iir", "parallel.mesh", "parallel.sharded")}
+    "parallel", "parallel.am", "parallel.correlate", "parallel.distributed",
+    "parallel.dryrun", "parallel.iir", "parallel.mesh", "parallel.sharded")}
 assert new <= set(names), sorted(new - set(names))
 for name in names + ["chip_smoke"]:
     importlib.import_module(name)
