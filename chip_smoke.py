@@ -95,12 +95,26 @@ and fails (non-zero exit, no result line) on any error. Phases, in order:
     (K4), every output on every rank bit for bit the one-process mesh's;
     (i) NoaaDecoder(mesh=) cold and warm, rank 0 against phase 20's
     decode (crude syncs equal, >= 99.9 % of pixels and none off by more
-    than 1, accurate syncs within a sample); each rank's launches and wall
-    against the one-process mesh over the same files. A rank that fails
-    or outlives its time fails the run;
-26. print the kernel table as one JSON line (time, plain time, bound and
+    than 1, accurate syncs within a sample); (j) Stream.run_sharded
+    (tutorial 3's chain) over phase 19's capture, every output on every
+    rank bit for bit phase 19's one-process run_sharded (K4); each rank's
+    launches and wall against the one-process mesh over the same files. A
+    rank that fails or outlives its time fails the run;
+26. the peak variants (`ops.peaks_extra`) on the card, on two seeded tones:
+    (A) 2^20 samples, 64 a period, white noise of sigma 0.01; (B) 2^18
+    clean samples, 2,048 a period, whose 65,536-sample half-periods of the
+    32x interpolated walk cross K2's chunks without a fire. peaks_fft (one
+    K2 launch at lookahead 500 over 2^25 and 2^23 interpolated samples)
+    against the tones' analytic extrema; K2 against its plain version on
+    the first 2^22 samples of each walk; the whole walk timed with its
+    forward-window extrema, chunks, stitch steps and one walker; then
+    peaks_parabola, peaks_sine, peaks_sine_locked and peaks_spline on (A),
+    and on its first 2^16 samples against the same functions on the CPU;
+27. print the kernel table as one JSON line (time, plain time, bound and
     library-call time, launches on each path, the mesh paths among them),
     then the result line {"ok": true, "device": {...}} last.
+
+Phase 4 also prints the warm decode's `NoaaDecoder.profiler.report()`.
 
 Imports nothing of JAX.
 """
@@ -430,6 +444,7 @@ def phase4_decode(ddc, fe, dev) -> tuple[int, torch.Tensor]:
         check(len(acc[1]) > 0 and np.all(np.abs(np.asarray(acc[1]) - 0.5 * FS) < 300),
               "accurate syncs 0.5 s apart within 300 samples")
         check(launches > 0, "the decode launched K1")
+    print(f"phase 4 (warm): profiler {json.dumps(dec.profiler.report())}", flush=True)
 
     # K1 at the decode's own shape: the remainder after block 0 in one call
     J, K = fe.stride, fe.ntaps
@@ -1805,15 +1820,27 @@ def worker_source(work: str, dev, case: str):
     """Phase 25's input of `case` as a rank opens it, with its front end:
     the NOAA bytes as an IQDat and the NOAA front end for (g) and (i); the
     complex64 capture as an ArraySource over the memory-mapped file and
-    tutorial 3's front end for (h)."""
+    tutorial 3's front end for (h) and (j)."""
     from directdemod_tpu_torch.io.sources import ArraySource, IQDat
     from directdemod_tpu_torch.models.frontend import DdcFm
     from directdemod_tpu_torch.ops import design
-    if case == "h":
+    if case in ("h", "j"):
         fm = ArraySource(np.load(os.path.join(work, "fm.npy"), mmap_mode="r"), FS)
         return fm, fm_chain(fm, dev)._as_ddc()
     return (IQDat(os.path.join(work, "noaa.dat"), FS),
             DdcFm(FS, OFFSET_HZ, design.blackmanharris(151), 60_000))
+
+
+def sharded_run(case: str, src, fe, mesh, blk: int, dev) -> np.ndarray:
+    """Phase 25's front end of `case` over `mesh`: ShardedDdcFm for (g) and
+    (h), tutorial 3's chain through Stream.run_sharded for (j)."""
+    from directdemod_tpu_torch.parallel.sharded import ShardedDdcFm
+    if case == "j":
+        return fm_chain(src, dev).run_sharded(mesh, blk)[0]
+    return ShardedDdcFm(fe, mesh).process(src, blk)[0]
+
+
+REF_OF = {"g": "g_ref.npy", "h": "h_ref.npy", "j": "h_ref.npy"}
 
 
 def mesh_worker(rank: int, world: int, port: int, work: str, cases: str) -> None:
@@ -1821,17 +1848,16 @@ def mesh_worker(rank: int, world: int, port: int, work: str, cases: str) -> None
     cases`): joins the process group on localhost, takes PROC_SHARDS
     `time` shards that all name cuda:0 of a mesh over every rank, and runs
     `cases` on it, each rank reading only its own blocks: (g) ShardedDdcFm
-    over the NOAA bytes (K1), (h) over the complex64 capture (K4), (i)
-    NoaaDecoder(mesh=) cold and warm. Each output is held to the
-    one-process results in `work`, bit for bit for (g) and (h), by the JAX
-    two-process test's bars on rank 0 for (i). Prints one line
-    `WORKER {json}` a case."""
+    over the NOAA bytes (K1), (h) over the complex64 capture (K4), (j)
+    Stream.run_sharded over the same capture, (i) NoaaDecoder(mesh=) cold
+    and warm. Each output is held to the one-process results in `work`,
+    bit for bit for (g), (h) and (j), by the JAX two-process test's bars
+    on rank 0 for (i). Prints one line `WORKER {json}` a case."""
     from directdemod_tpu_torch import constants
     from directdemod_tpu_torch.models.noaa import NoaaDecoder
     from directdemod_tpu_torch.ops import ddc
     from directdemod_tpu_torch.parallel import distributed
     from directdemod_tpu_torch.parallel.mesh import make_mesh
-    from directdemod_tpu_torch.parallel.sharded import ShardedDdcFm
     dev = torch.device("cuda", 0)
     distributed.initialize(f"127.0.0.1:{port}", world, rank, local_devices=PROC_SHARDS,
                            device=dev)
@@ -1844,17 +1870,17 @@ def mesh_worker(rank: int, world: int, port: int, work: str, cases: str) -> None
     for case in cases.split(","):
         res = {"case": case, "rank": rank, "shards": mesh.local_time}
         src, fe = worker_source(work, dev, case)
-        if case in ("g", "h"):
+        if case in REF_OF:
             ddc.LAUNCHES = ddc.LAUNCHES_C64 = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            got, _ = ShardedDdcFm(fe, mesh).process(src, spec.get("block",
-                                                                  constants.PROC_CHUNKSIZE))
+            got = sharded_run(case, src, fe, mesh,
+                              spec.get("block", constants.PROC_CHUNKSIZE), dev)
             res["wall_s"] = time.perf_counter() - t0
             res["launches"] = ddc.LAUNCHES if case == "g" else ddc.LAUNCHES_C64
             res["outputs"] = len(got)
             res["n_diff"], res["max_diff"] = bit_diff(
-                got, np.load(os.path.join(work, f"{case}_ref.npy")))
+                got, np.load(os.path.join(work, REF_OF[case])))
         elif case == "i":
             ref = np.load(os.path.join(work, "i_ref.npz"))
             for run in ("cold", "warm"):
@@ -1885,28 +1911,28 @@ def mesh_worker(rank: int, world: int, port: int, work: str, cases: str) -> None
 
 
 def phase25_two_processes(ddc, dev, work: str) -> dict:
-    """(g)-(i) on a 4-shard `time` mesh over two processes, each owning two
+    """(g)-(j) on a 4-shard `time` mesh over two processes, each owning two
     shards that name this card (`parallel.distributed` over gloo, started
     with `subprocess`): phase 18's bytes (K1), phase 19's complex64 capture
-    (K4) and phase 20's NOAA decode, each rank reading its own blocks from
-    the files in `work`; the one-process mesh over the same files runs
-    here first, for the wall. A rank that fails, or outlives
-    WORKER_TIMEOUT_S, fails the phase. Returns the launches and walls."""
+    (K4) through ShardedDdcFm and through Stream.run_sharded, and phase
+    20's NOAA decode, each rank reading its own blocks from the files in
+    `work`; the one-process mesh over the same files runs here first, for
+    the wall. A rank that fails, or outlives WORKER_TIMEOUT_S, fails the
+    phase. Returns the launches and walls."""
     from directdemod_tpu_torch import constants
     from directdemod_tpu_torch.models.noaa import NoaaDecoder
     from directdemod_tpu_torch.parallel import distributed
-    from directdemod_tpu_torch.parallel.sharded import ShardedDdcFm
     blk = constants.PROC_CHUNKSIZE
     with open(os.path.join(work, "spec.json"), "w") as f:
         json.dump({"block": blk}, f)
     one = {}
-    for case in ("g", "h"):
+    for case in REF_OF:
         src, fe = worker_source(work, dev, case)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        got, _ = ShardedDdcFm(fe, card_mesh(dev)).process(src, blk)
+        got = sharded_run(case, src, fe, card_mesh(dev), blk, dev)
         one[case] = time.perf_counter() - t0
-        n_diff, _ = bit_diff(got, np.load(os.path.join(work, f"{case}_ref.npy")))
+        n_diff, _ = bit_diff(got, np.load(os.path.join(work, REF_OF[case])))
         check(n_diff == 0, f"one-process mesh over the files ({case}): {n_diff} differ")
     noaa, _ = worker_source(work, dev, "i")
     dec = NoaaDecoder(noaa, OFFSET_HZ, device=dev, mesh=card_mesh(dev))
@@ -1924,7 +1950,7 @@ def phase25_two_processes(ddc, dev, work: str) -> dict:
     t0 = time.perf_counter()
     runs = distributed.launch(
         [[os.path.abspath(__file__), "--worker", str(r), str(PROC_WORLD), str(port), work,
-          "g,h,i"] for r in range(PROC_WORLD)], timeout_s=WORKER_TIMEOUT_S, env=env, cwd=work)
+          "g,h,j,i"] for r in range(PROC_WORLD)], timeout_s=WORKER_TIMEOUT_S, env=env, cwd=work)
     t_launch = time.perf_counter() - t0
     res = {}
     for r, (code, text) in enumerate(runs):
@@ -1933,14 +1959,15 @@ def phase25_two_processes(ddc, dev, work: str) -> dict:
             if line.startswith("WORKER "):
                 w = json.loads(line[len("WORKER "):])
                 res[(w["case"], w["rank"])] = w
-    check(len(res) == 3 * PROC_WORLD, f"phase 25 results {sorted(res)}")
+    check(len(res) == 4 * PROC_WORLD, f"phase 25 results {sorted(res)}")
     out = {"one_process_wall_s": one, "launch_wall_s": t_launch}
     checks = []                 # every case is printed before any check fails
-    for case, kernel in (("g", "K1"), ("h", "K4")):
+    for case, kernel, api in (("g", "K1", "ShardedDdcFm"), ("h", "K4", "ShardedDdcFm"),
+                              ("j", "K4", "Stream.run_sharded")):
         ranks = [res[(case, r)] for r in range(PROC_WORLD)]
         launches = [w["launches"] for w in ranks]
         blocks = -(-worker_source(work, dev, case)[0].length // blk)
-        print(f"phase 25 ({case}): ShardedDdcFm on {PROC_WORLD} processes x {PROC_SHARDS} "
+        print(f"phase 25 ({case}): {api} on {PROC_WORLD} processes x {PROC_SHARDS} "
               f"shards of the card, {ranks[0]['outputs']} outputs on each rank, "
               f"{[w['n_diff'] for w in ranks]} not bit-equal to the one-process mesh; "
               f"{kernel} launches by rank {launches} (sum {sum(launches)}, {blocks} blocks); "
@@ -1976,6 +2003,156 @@ def phase25_two_processes(ddc, dev, work: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------- peak variants
+PEAK_PHASE = 1.0                # rad: the tones' first zero crossing lies inside them
+PEAK_LOOKAHEAD = 500            # peaks_fft's lookahead
+# (name, samples, samples a period, noise sigma, seed, position bar in input
+# samples (None: in interpolated grid steps, PEAK_GRID_STEPS), value bar)
+PEAK_TONES = (("A", 1 << 20, 64, 0.01, 0, 4.0, 0.05),
+              ("B", 1 << 18, 2048, 0.0, 0, None, 1e-3))
+# a float32 walk cannot tell apart the samples of (B)'s peak plateau, those
+# within 2^-24 of +/-1: +/-4.1 grid steps at 2,048 samples a period, 32x
+PEAK_GRID_STEPS = 5
+PEAK_PREFIX = 1 << 16           # the card-vs-CPU comparison of the refinements
+# the CPU tests' tolerances (tests/test_torch_peaks_extra.py)
+PEAK_REFINE_TOL = {"peaks_parabola": 1e-9, "peaks_sine": 1e-9,
+                   "peaks_sine_locked": 1e-9, "peaks_spline": 1e-8}
+
+
+def peak_tone(n: int, period: int, noise: float, seed: int):
+    """(x, y): the sample index and sin(2 pi x / period + PEAK_PHASE) plus
+    white noise of sigma `noise` from numpy seed `seed`, float64 on the
+    host."""
+    x = np.arange(n, dtype=np.float64)
+    y = np.sin(2 * np.pi * x / period + PEAK_PHASE)
+    if noise:
+        y = y + noise * np.random.default_rng(seed).standard_normal(n)
+    return x, y
+
+
+def tone_peak_errors(found: list, period: int, sign: int, lo: float, hi: float) -> dict:
+    """`found` ([[x, value], ...] maxima for sign 1, minima for -1) against
+    the tone's true extrema: the largest position and value errors, the
+    extrema in (lo, hi - period / 2) that no peak found, the peaks that
+    match no extremum in (lo, hi) or share one."""
+    t0 = ((np.pi / 2 if sign > 0 else 1.5 * np.pi) - PEAK_PHASE) / (2 * np.pi) * period
+    pos = np.asarray([p[0] for p in found], np.float64)
+    val = np.asarray([p[1] for p in found], np.float64)
+    k = np.round((pos - t0) / period)
+    truth = np.arange(np.ceil((lo - t0) / period), np.floor((hi - t0) / period) + 1)
+    need = truth[t0 + truth * period < hi - period / 2]
+    return {"peaks": len(found),
+            "pos_err": float(np.abs(pos - (t0 + k * period)).max()),
+            "val_err": float(np.abs(val - sign).max()),
+            "missing": int(np.setdiff1d(need, k).size),
+            "extra": int(np.setdiff1d(k, truth).size + len(k) - len(np.unique(k)))}
+
+
+def peaks_fft_walk(peaks, px, name: str, n: int, period: int, noise: float, seed: int,
+                   pos_bar, val_bar, dev) -> tuple[int, dict]:
+    """peaks_fft on one tone on the card (its K2 launches counted), held to
+    the analytic extrema; K2 against its plain version on the first 2^22
+    samples of the interpolated walk; the walk's parts timed. Returns
+    (peaks_fft's K2 launches, the numbers)."""
+    x, y = peak_tone(n, period, noise, seed)
+    torch.cuda.synchronize()
+    peaks.LAUNCHES = 0
+    t0 = time.perf_counter()
+    mx, mn = px.peaks_fft(y, x, device=dev)
+    wall = time.perf_counter() - t0
+    launches = peaks.LAUNCHES
+
+    yi, xi, delta = px._fft_waveform(y, x, 20, dev)
+    step = float(xi[1] - xi[0])
+    bar = pos_bar if pos_bar is not None else PEAK_GRID_STEPS * step
+    errs = [tone_peak_errors(f, period, sign, float(xi[0]), float(xi[-1]))
+            for f, sign in ((mx, 1), (mn, -1))]
+    label = f"phase 26 ({name})"
+    print(f"{label}: peaks_fft on {n} samples ({period} a period, noise {noise}): "
+          f"{yi.shape[0]} interpolated samples walked at lookahead {PEAK_LOOKAHEAD}, "
+          f"delta {delta:.6f}, {launches} K2 launch(es), {wall:.3f} s wall; maxima "
+          f"{json.dumps(errs[0])}, minima {json.dumps(errs[1])} (position bar {bar:.5f} "
+          f"samples, grid step {step:.5f}; value bar {val_bar})", flush=True)
+    check(launches == 1, f"{label}: peaks_fft launched K2 {launches} times")
+    for e in errs:
+        check(e["missing"] == 0 and e["extra"] == 0 and e["peaks"] > 0,
+              f"{label}: one peak a period {e}")
+        check(e["pos_err"] <= bar and e["val_err"] <= val_bar, f"{label}: peak errors {e}")
+
+    # the walk's parts on the card
+    y32 = yi.float().contiguous()
+    limit = y32.shape[0] - PEAK_LOOKAHEAD
+    fwe_ms = cuda_ms(lambda: peaks.forward_window_extrema(y32, PEAK_LOOKAHEAD), 3)
+    fmax, fmin = peaks.forward_window_extrema(y32, PEAK_LOOKAHEAD)
+    args = (y32[:limit], fmax[:limit].contiguous(), fmin[:limit].contiguous(), delta)
+    stats = {}
+    events = peaks.lookahead_walk(*args, stats=stats)[0].shape[0]
+    steps = stats["stitch_steps"].double()
+    walk_ms = cuda_ms(lambda: peaks.lookahead_walk(*args), 3)
+    one_ms = cuda_ms(lambda: peaks.lookahead_walk(*args, chunk=limit), 1)
+    step_ns = one_ms * 1e6 / limit
+    out = {"walk_samples": limit, "events": events, "walk_ms": walk_ms,
+           "forward_extrema_ms": fwe_ms, "wall_s": wall, "chunk": stats["chunk"],
+           "chunks": stats["chunks"], "stitch_steps_max": int(steps.max()),
+           "stitch_steps_mean": float(steps.mean()),
+           "unmet_chunks": int((~stats["met"]).sum()), "one_walker_ms": one_ms,
+           "chain_bound_ms": (stats["chunk"] + float(steps.sum())) * step_ns * 1e-6,
+           **bound(12 * limit + 21 * events + 8, 6 * limit),
+           "maxima": errs[0], "minima": errs[1]}
+    del fmax, fmin, args
+    print(f"{label}: K2 over the whole walk ({limit} samples, {events} events) "
+          f"{walk_ms:.4f} ms, forward-window extrema (max pools of {PEAK_LOOKAHEAD}) "
+          f"{fwe_ms:.4f} ms; {out['chunks']} chunks of {out['chunk']}, stitch "
+          f"{out['stitch_steps_mean']:.1f} steps a chunk (largest {out['stitch_steps_max']}), "
+          f"{out['unmet_chunks']} chunks that never met a speculative walk; one walker "
+          f"{one_ms:.4f} ms ({step_ns:.2f} ns a step), chain bound "
+          f"{out['chain_bound_ms']:.4f} ms, bound {out['bound_ms']:.5f} ms "
+          f"({out['bound_by']}) on {card_line()}", flush=True)
+    cmp = k2_compare(peaks, y32[: (1 << 22) + PEAK_LOOKAHEAD], PEAK_LOOKAHEAD, delta,
+                     f"{label} first 2^22 samples of the walk", 1)
+    out.update({f"{f}_2p22": cmp[f] for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")})
+    return launches, out
+
+
+def phase26_peaks(peaks, dev) -> tuple[int, dict]:
+    """The peak variants on the card: peaks_fft on tones (A) and (B)
+    (`peaks_fft_walk`), then peaks_parabola, peaks_sine, peaks_sine_locked
+    and peaks_spline on (A), timed, and on its first PEAK_PREFIX samples
+    against the same functions on the CPU within the CPU tests'
+    tolerances. Returns peaks_fft's K2 launches and the numbers."""
+    from directdemod_tpu_torch.ops import peaks_extra as px
+    launches, out = 0, {}
+    for name, n, period, noise, seed, pos_bar, val_bar in PEAK_TONES:
+        k, out[name] = peaks_fft_walk(peaks, px, name, n, period, noise, seed, pos_bar,
+                                      val_bar, dev)
+        launches += k
+    name, n, period, noise, seed = PEAK_TONES[0][:5]
+    x, y = peak_tone(n, period, noise, seed)
+    for fn, tol in PEAK_REFINE_TOL.items():
+        f = getattr(px, fn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = f(y, x, device=dev)
+        wall = time.perf_counter() - t0
+        finite = all(np.isfinite(np.asarray(p, np.float64)).all() for p in got)
+        card = f(y[:PEAK_PREFIX], x[:PEAK_PREFIX], device=dev)
+        cpu = f(y[:PEAK_PREFIX], x[:PEAK_PREFIX], device="cpu")
+        same = all(len(a) == len(b) for a, b in zip(card, cpu))
+        err = max(float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+                  for a, b in zip(card, cpu)) if same else float("inf")
+        dev_pos = max(tone_peak_errors(p, period, sign, 0.0, float(n))["pos_err"]
+                      for p, sign in zip(got, (1, -1)))
+        out[fn] = {"wall_s": wall, "peaks": [len(p) for p in got], "card_vs_cpu": err,
+                   "pos_err": dev_pos}
+        print(f"phase 26 (A): {fn} on {n} samples {wall:.3f} s wall, {out[fn]['peaks']} "
+              f"peaks, largest distance from the true extrema {dev_pos:.4f} samples; on the "
+              f"first {PEAK_PREFIX} samples card vs CPU {err:.3e} (bar {tol}) on "
+              f"{card_line()}", flush=True)
+        check(finite and min(out[fn]["peaks"]) > 0, f"{fn}: finite peaks")
+        check(err <= tol, f"{fn}: card vs CPU {err}")
+    return launches, out
+
+
 def two_process_smoke(n_lines: int = 240, fm_seconds: float = 60.0) -> dict:
     """Phases 18-20 and 25 alone on shorter captures (a 2-minute NOAA pass,
     a minute of FM: one wave and the blocks after it): the two-process mesh against the one-process one, for
@@ -1999,6 +2176,19 @@ def two_process_smoke(n_lines: int = 240, fm_seconds: float = 60.0) -> dict:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"two_process": out}), flush=True)
+    return out
+
+
+def peaks_smoke() -> dict:
+    """Phase 26 alone (K2 built, then the peak variants), for iterating on
+    `ops/peaks_extra` or K2 without the decodes. Run it on the card as
+    `python3 -c "import chip_smoke as s; s.peaks_smoke()"`."""
+    from directdemod_tpu_torch.ops import peaks
+    check(torch.cuda.is_available(), "a CUDA device")
+    print(card_line(), flush=True)
+    peaks.build()
+    launches, out = phase26_peaks(peaks, torch.device("cuda", 0))
+    print(json.dumps({"peaks_fft_launches": launches, "peaks": out}), flush=True)
     return out
 
 
@@ -2108,6 +2298,7 @@ def main() -> int:
         procs = phase25_two_processes(ddc, dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    fft_k2, peak_runs = phase26_peaks(peaks, dev)
 
     print(json.dumps({"kernels": [
         {"name": "ddc_fm_u8", "route": "cuda",
@@ -2134,11 +2325,12 @@ def main() -> int:
          "source": "directdemod_tpu_torch/csrc/ddc_fm_c64.cu",
          "replaces": "directdemod_tpu/ops/pallas_ddc.py:31",
          "launches": (fm_k4 + fused_k4 + bank_k4 + sharded_k4 + dry["k4_launches"]
-                      + procs["h_launches"]),
+                      + procs["h_launches"] + procs["j_launches"]),
          "launches_by_path": {"fm": fm_k4, "stream_fused": fused_k4,
                               "multichannel": bank_k4, "stream_sharded": sharded_k4,
                               "dryrun": dry["k4_launches"],
-                              "stream_sharded_2proc": procs["h_launches"]},
+                              "stream_sharded_2proc": procs["h_launches"],
+                              "stream_sharded_2proc_api": procs["j_launches"]},
          **{f: k4[34][f] for f in ("ms", "plain_ms", "library_ms", "bound_ms",
                                    "bound_by")},
          "max_abs_err": max(v["max_abs_err"] for key, v in k4.items()
@@ -2152,9 +2344,14 @@ def main() -> int:
         {"name": "lookahead_walk", "route": "cuda",
          "source": "directdemod_tpu_torch/csrc/lookahead_walk.cu",
          "replaces": "directdemod_tpu/ops/peaks.py:205",
-         "launches": afsk_k2, "launches_by_path": {"afsk1200": afsk_k2},
+         "launches": afsk_k2 + fft_k2,
+         "launches_by_path": {"afsk1200": afsk_k2, "peaks_fft": fft_k2},
          **k2, "max_abs_err": max([k2["max_abs_err"]]
-                                  + [s["max_abs_err"] for s in stress]),
+                                  + [s["max_abs_err"] for s in stress]
+                                  + [peak_runs[t[0]]["max_abs_err_2p22"]
+                                     for t in PEAK_TONES]),
+         "peaks_fft": {t[0]: {k: v for k, v in peak_runs[t[0]].items()
+                              if k not in ("maxima", "minima")} for t in PEAK_TONES},
          "stress_ms": [s["ms"] for s in stress],
          "stress_plain_ms": [s["plain_ms"] for s in stress]},
         {"name": "symbol_scan", "route": "cuda",

@@ -30,6 +30,7 @@ from ..ops import am as am_ops
 from ..ops import correlate as corr_ops
 from ..ops import design, fir, fm as fm_ops, iir, peaks, resample as rs
 from ..ops import unpack
+from ..utils.profiling import Profiler
 from .frontend import DdcFm, DdcFmStream
 from .stages import TimedDecoder
 
@@ -45,7 +46,15 @@ class NoaaDecoder(TimedDecoder):
     The surface of the reference: `useful`, `get_audio()`, `get_image()`,
     `image_a`/`image_b`, `get_color()`, `channel_id`, `get_crude_sync()`,
     `get_accurate_sync()`, each computed once and cached. `device` and
-    `stage_seconds` as `TimedDecoder` gives them."""
+    `stage_seconds` as `TimedDecoder` gives them.
+
+    `profiler` (`utils.profiling.Profiler`) records what the JAX decoder's
+    does: "fm_frontend" with the capture's length on the resident and mesh
+    paths and e - s for each block of the blocked path, and
+    "sync_correlate" with 2 n around the crude-sync correlation of n audio
+    samples. Where the JAX decoder fuses front end and sync search into one
+    "frontend+sync" stage (its resident crude-sync path) the port runs them
+    as two stages and records them under those two names."""
 
     def __init__(self, sigsrc, offset: float, bw: int | None = None,
                  device=None, mesh=None):
@@ -64,6 +73,7 @@ class NoaaDecoder(TimedDecoder):
         self._color = None
         self._ch_id = (None, None)
         self._accurate = None
+        self.profiler = Profiler()   # per-stage Msamples/s (utils.profiling)
 
     # ------------------------------------------------------------- front end
     def _frontend(self) -> DdcFm:
@@ -89,7 +99,8 @@ class NoaaDecoder(TimedDecoder):
             ndev = self.mesh.shape["time"]
             blk = int(min(K.PROC_CHUNKSIZE,
                           max(1 << 20, self.src.length // (2 * ndev))))
-            with self._stage("fm_frontend"):
+            with self._stage("fm_frontend"), \
+                    self.profiler.stage("fm_frontend", self.src.length):
                 audio, _ = ShardedDdcFm(fe, self.mesh).process(self.src, blk)
             return torch.from_numpy(audio).to(self.device), out_rate
 
@@ -97,7 +108,7 @@ class NoaaDecoder(TimedDecoder):
                 and callable(getattr(self.src, "read_raw_device", None))
                 and self.src.device == self.device):
             n = self.src.length
-            with self._stage("fm_frontend"):
+            with self._stage("fm_frontend"), self.profiler.stage("fm_frontend", n):
                 audio = fe.resident_frontend(self.src.read_raw_device(0, n), n)
             return audio, out_rate
 
@@ -106,7 +117,8 @@ class NoaaDecoder(TimedDecoder):
         off2 = 0
         with self._stage("fm_frontend"):
             for s, e, x in BlockFeeder(self.src, K.PROC_CHUNKSIZE, self.device):
-                y = stream.step(x, s)
+                with self.profiler.stage("fm_frontend", e - s):
+                    y = stream.step(x, s)
                 if strict:
                     y = rs.fft_resample(y, int(target_rate * y.shape[0]
                                                / decim_rate))
@@ -136,7 +148,8 @@ class NoaaDecoder(TimedDecoder):
             self._sync_rate = rate
             log.info("NOAA crude sync: correlating %d samples at %d Hz",
                      audio.shape[0], rate)
-            with self._stage("crude_sync"):
+            with self._stage("crude_sync"), \
+                    self.profiler.stage("sync_correlate", 2 * int(audio.shape[0])):
                 if self.mesh is None:
                     self._sync_a, self._sync_b = _crude_sync(audio, rate)
                 else:

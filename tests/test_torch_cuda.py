@@ -16,7 +16,10 @@ their span in passes); each output's arithmetic does not depend on the
 launch, so a channel of a bank must equal the one-channel launch, and a
 launch that reads a history through `head=` the launch over the
 concatenated samples, bit for bit; K2 and its plain
-version compare the same float32 values, so their events must be equal;
+version compare the same float32 values, so their events must be equal
+(so must peaks_fft's walk at lookahead 500; peaks_fft on the card and the
+CPU to the CPU parity bars, 1e-3 in x and 1e-6 in value; the B-spline
+prefilter to scipy's cspline1d within 1e-9);
 decodes on the card and on the CPU to the bars of tests/test_torch_noaa.py
 (equal crude syncs, image within one uint8 level on under 1 % of pixels,
 accurate syncs within +/-1 sample), and AFSK decodes frame for frame. K3
@@ -440,6 +443,61 @@ def test_walk_kernel_rejects_bad_arguments(dev):
         peaks.lookahead_walk(y_, fmax, fmin, -1.0)
     with pytest.raises(ValueError):                      # float64
         peaks.lookahead_walk(y_.double(), fmax.double(), fmin.double(), 0.0)
+
+
+def _interpolated_tone(period: int, periods: int, dev):
+    """A unit tone of `period` samples a period, 32x FFT-interpolated as
+    peaks_fft interpolates it, float32 on `dev`."""
+    from directdemod_tpu_torch.ops.peaks_extra import _fft_interp
+    seg = torch.sin(2 * np.pi * torch.arange(period * periods, dtype=torch.float64,
+                                             device=dev) / period)
+    return _fft_interp(seg, 32 * period * periods).float()
+
+
+@pytest.mark.parametrize("period,periods", [(32, 64), (2048, 8)])
+def test_walk_kernel_at_lookahead_500_on_an_interpolated_tone(dev, period, periods):
+    """peaks_fft's walk: lookahead 500 over 1,024 and 65,536 walk samples a
+    period. At 65,536 four 16,384-sample chunks of each half-period hold no
+    fire, so the stitch meets them by checkpoint alone."""
+    y = _interpolated_tone(period, periods, dev)
+    delta = 4 * float(np.sin(np.pi / period))            # peaks_fft's 2 max|dy|
+    args = _walk_args(y, 500)
+    stats = {}
+    got = peaks.lookahead_walk(*args, delta, stats=stats)
+    want = peaks.lookahead_walk_plain(*args, delta)
+    assert got[0].shape[0] >= 2 * periods - 1            # one a half-period
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert bool(stats["met"][1:].any())
+
+
+def test_peaks_fft_on_the_card_matches_cpu(dev):
+    """peaks_fft (K2 at lookahead 500, one launch a call) on the card
+    against device="cpu": the same count, positions within 1e-3 in x units,
+    values within 1e-6 (the CPU parity tests' bars)."""
+    from directdemod_tpu_torch.ops import peaks_extra as px
+    rng = np.random.default_rng(3)
+    x = np.linspace(0.0, 1.0, 1 << 14, endpoint=False)
+    y = np.sin(2 * np.pi * 64 * x + 1.0) + 0.01 * rng.standard_normal(x.size)
+    before = peaks.LAUNCHES
+    got = px.peaks_fft(y, x, device=dev)
+    assert peaks.LAUNCHES == before + 1
+    want = px.peaks_fft(y, x, device="cpu")
+    for g, w in zip(got, want):
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        assert g.shape == w.shape and len(g) >= 60
+        np.testing.assert_allclose(g[:, 0], w[:, 0], rtol=0, atol=1e-3)
+        np.testing.assert_allclose(g[:, 1], w[:, 1], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [257, 1 << 20])
+def test_cspline_coeffs_on_the_card_match_scipy(dev, n):
+    from scipy.signal import cspline1d
+    from directdemod_tpu_torch.ops import peaks_extra as px
+    y = np.random.default_rng(n).standard_normal(n)
+    got = px._cspline_coeffs(torch.from_numpy(y).to(dev))
+    assert got.device == dev
+    np.testing.assert_allclose(got.cpu().numpy(), cspline1d(y), rtol=0, atol=1e-9)
 
 
 def test_afsk_decode_on_the_card_matches_cpu(dev, monkeypatch):

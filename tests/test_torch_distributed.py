@@ -16,6 +16,10 @@ Stated tolerances:
   same input within the JAX test's bar (max |difference| < 2e-3,
   tests/test_distributed.py:77) and the front-end tests' wrapped-phase bar
   (99.9th percentile < 1e-4, max < 2e-2);
+- `Stream.run_sharded` (tutorial 3's chain) over the two processes equals
+  the one-process 8-shard `run_sharded` bit for bit on each rank, and JAX
+  `Stream.run_sharded` on the one-process 8-device mesh within the bars
+  above, at the same rate;
 - the collectives across processes move values exactly;
 - NOAA on the two-process mesh, rank 0 against the port's unsharded decode
   (the JAX two-process test's bars, tests/test_distributed.py:129-134):
@@ -36,6 +40,8 @@ from directdemod_tpu.io.sources import IQDat as JIQDat
 from directdemod_tpu.models.frontend import DdcFm as JDdcFm
 from directdemod_tpu.models.noaa import NoaaDecoder as JNoaaDecoder
 from directdemod_tpu.ops import design as jdesign
+from directdemod_tpu.parallel.mesh import make_mesh as jmake_mesh
+from directdemod_tpu.stream.api import Stream as JStream
 from directdemod_tpu_torch.io.sources import ArraySource, IQDat
 from directdemod_tpu_torch.models.frontend import DdcFm
 from directdemod_tpu_torch.models.noaa import NoaaDecoder
@@ -43,6 +49,7 @@ from directdemod_tpu_torch.ops import design
 from directdemod_tpu_torch.parallel import distributed
 from directdemod_tpu_torch.parallel.mesh import make_mesh
 from directdemod_tpu_torch.parallel.sharded import ShardedDdcFm
+from directdemod_tpu_torch.stream.api import Stream
 from tests.apt_synth import synthesize
 
 torch.set_num_threads(1)
@@ -93,6 +100,12 @@ if case == "frontend":
         res[f"wave_{kind}_carry"] = np.asarray(carry is not None)
     res["process_c64"], _ = sh.process(ArraySource(x, FS), L)
     res["process_u8"], _ = sh.process(IQDat(os.path.join(out, "raw.dat"), FS), L)
+    # tutorial 3's chain through the stream API, over the same mesh
+    from directdemod_tpu_torch.stream.api import Stream
+    res["run_sharded"], rate = (Stream(ArraySource(x, FS), device="cpu").shift(30000)
+                                .filter(design.blackmanharris(151)).bw_limit(60000)
+                                .fm_demod().run_sharded(mesh, L))
+    res["run_sharded_rate"] = np.asarray(rate)
     # the collectives across processes
     xs = [torch.full((3,), float(i)) if mesh.is_local(i) else None for i in range(N)]
     ring = pmesh.ppermute(xs, [(i, (i + 1) % N) for i in range(N)], mesh.time_devices,
@@ -109,7 +122,6 @@ if case == "frontend":
     from directdemod_tpu_torch.models.multichannel import MultiDdcFm
     from directdemod_tpu_torch.ops import pll
     from directdemod_tpu_torch.parallel.dryrun import dryrun
-    from directdemod_tpu_torch.stream.api import Stream
     from directdemod_tpu_torch import cli
     taps = design.blackmanharris(151)
     src = ArraySource(x, FS)
@@ -124,8 +136,6 @@ if case == "frontend":
         "symbol_scan_segments": raises(lambda: pll.symbol_scan_segments(
             p, torch.zeros(40_000, dtype=torch.complex64), sync, sync, 8, 8, mesh=mesh)),
         "funcube": raises(lambda: FuncubeDecoder(src, 5000, device="cpu", mesh=mesh)),
-        "run_sharded": raises(lambda: Stream(src, device="cpu").shift(30000).filter(taps)
-                              .bw_limit(60000).fm_demod().run_sharded(mesh)),
         "dryrun": raises(lambda: dryrun(8, device="cpu")),
         "cli": raises(lambda: cli.main(["--mesh=2", "-d", "noaa", os.path.join(out, "none.wav")],
                                        device="cpu")),
@@ -278,6 +288,32 @@ def test_process_returns_the_whole_array_on_both_ranks(frontend_run, kind):
         _assert_phase_close(want, jref)
 
 
+def test_stream_run_sharded_over_two_processes(frontend_run):
+    """Tutorial 3's chain (`Stream.run_sharded`) on the 2 x 4 mesh: each
+    rank returns the one-process 8-shard `run_sharded` audio bit for bit,
+    and JAX `Stream.run_sharded` on its one-process 8-device mesh within
+    the front end's bar (max |difference| < 2e-3, wrapped phase), at the
+    same rate."""
+    x, _, _, ranks, _ = frontend_run
+
+    def chain(stream_cls, src, taps, **kw):
+        return (stream_cls(src, **kw).shift(30000).filter(taps).bw_limit(60000)
+                .fm_demod())
+    want, rate = chain(Stream, ArraySource(x, FS), design.blackmanharris(151),
+                       device="cpu").run_sharded(make_mesh(time=N_CHUNKS, device="cpu"), L)
+    for r in range(2):
+        got = ranks[r]["run_sharded"]
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert np.array_equal(got.view(np.uint32), want.view(np.uint32)), r
+        assert int(ranks[r]["run_sharded_rate"]) == rate
+    jgot, jrate = chain(JStream, JArraySource(x, FS), jdesign.blackmanharris(151)
+                        ).run_sharded(jmake_mesh(time=N_CHUNKS), block_size=L)
+    assert rate == jrate
+    assert want.shape == jgot.shape
+    assert np.max(np.abs(want - jgot)) < 2e-3
+    _assert_phase_close(want, jgot)
+
+
 def test_ppermute_and_all_gather_across_processes(frontend_run):
     """A ring (every pair of neighbours, two of them across processes), a
     partial permutation (receivers with no sender get zeros, as in JAX) and
@@ -306,7 +342,7 @@ def test_global_wave_and_make_mesh_raise(frontend_run, name, match):
 
 
 @pytest.mark.parametrize("name", ["multichannel", "symbol_scan_segments", "funcube",
-                                  "run_sharded", "dryrun", "cli"])
+                                  "dryrun", "cli"])
 def test_one_process_callers_raise_on_a_process_mesh(frontend_run, name):
     """The `mesh=` callers the JAX suite does not test across processes
     raise ValueError there, naming the missing support."""

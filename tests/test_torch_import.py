@@ -1,7 +1,8 @@
 """The PyTorch port imports torch and never jax: every module of the package
 (the fourth slice's `device`, `models.fm`, `models.multichannel`,
 `ops.filters` and `stream.*`, the ninth slice's `parallel.*` and
-`models.geo`, and the tenth slice's `parallel.distributed` among them), and
+`models.geo`, the tenth slice's `parallel.distributed`, and the eleventh
+slice's `ops.peaks_extra` and `utils.profiling` among them), and
 the chip smoke script, whose `--worker` mode runs the two-process mesh on
 the card, import in a fresh interpreter without loading jax."""
 import os
@@ -24,7 +25,8 @@ new = {"directdemod_tpu_torch." + m for m in (
     "device", "models.fm", "models.multichannel", "ops.filters", "stream.api",
     "stream.checkpoint", "stream.pipeline", "stream.plan", "models.geo",
     "parallel", "parallel.am", "parallel.correlate", "parallel.distributed",
-    "parallel.dryrun", "parallel.iir", "parallel.mesh", "parallel.sharded")}
+    "parallel.dryrun", "parallel.iir", "parallel.mesh", "parallel.sharded",
+    "ops.peaks_extra", "utils.profiling")}
 assert new <= set(names), sorted(new - set(names))
 for name in names + ["chip_smoke"]:
     importlib.import_module(name)
@@ -40,7 +42,7 @@ def test_port_modules_import_without_jax():
     proc = subprocess.run([sys.executable, "-c", _CHECK], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 51      # every slice was walked
+    assert int(proc.stdout.strip()) >= 54      # every slice was walked
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

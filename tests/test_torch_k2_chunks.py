@@ -248,3 +248,35 @@ def test_afsk_edge_strength(afsk_edges, chunk):
     limit = afsk_edges.shape[0] - lookahead
     assert all(met)
     assert max(steps) <= max(CHECKPOINT, 200)
+
+
+def _interpolated_tone(period: int, periods: int) -> torch.Tensor:
+    """A unit tone of `period` samples a period, FFT-interpolated 32x as
+    `ops.peaks_extra.peaks_fft` interpolates (mid-spectrum zero pad), in
+    float32 as the walk reads it."""
+    from directdemod_tpu_torch.ops.peaks_extra import _fft_interp
+    seg = torch.sin(2 * math.pi * torch.arange(period * periods, dtype=torch.float64)
+                    / period)
+    return _fft_interp(seg, 32 * period * periods).float()
+
+
+@pytest.mark.parametrize("chunk", [64, 256])
+def test_lookahead_500_on_an_interpolated_tone(chunk):
+    """`peaks_fft`'s walk: lookahead 500 over a smooth waveform of 1,024
+    samples a period, whose half-period (512) is longer than the chunk, so
+    most chunks hold no fire. Such a chunk meets a speculative walk at its
+    first checkpoint; after the first fire the stitch walks a chunk whole
+    only between an extremum and its fire (there the true (mx, mn) is set
+    before the chunk) or when the chunk is shorter than a checkpoint."""
+    y = _interpolated_tone(32, 8)
+    delta = 2 * float((2 * math.sin(math.pi / 32)))      # peaks_fft's 2 max|dy|
+    events, steps, met, _ = _check(y, 500, delta, chunk)
+    assert len(events) == 15                             # one a half-period
+    fires = {e[0] // chunk for e in events}
+    limit = y.shape[0] - 500
+    assert {steps[c] for c in range(1, len(met)) if met[c] and c not in fires} == {CHECKPOINT}
+    for c in range(events[0][0] // chunk + 1, len(met)):
+        lo, hi = c * chunk, min(limit, (c + 1) * chunk)
+        if not met[c]:
+            assert hi - lo < CHECKPOINT or any(pos < lo and hi <= i + 1
+                                               for i, pos, _, _ in events)
