@@ -68,6 +68,8 @@ class Afsk1200Decoder(TimedDecoder):
     """Decode AFSK1200 APRS frames from an IQ source on `device`
     (`device` and `stage_seconds` as `TimedDecoder` gives them)."""
 
+    layer = "afsk"
+
     def __init__(self, sigsrc, offset: float, bw: int | None = None,
                  device=None):
         self.src = sigsrc

@@ -17,6 +17,7 @@ import torch
 from .. import constants as K
 from ..ops import am as am_ops
 from ..ops import resample as rs
+from .stages import span
 
 
 def median(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -253,7 +254,8 @@ def assemble_image(audio: torch.Tensor, rate: int, csync_a: list, csync_b: list,
     """Build the calibrated APT image from the FM audio on its device and
     the filled syncs (ref decode_noaa.py:305-461), or from its band-passed
     envelope `env` when that is given. Returns (image, channel_id_a,
-    channel_id_b)."""
+    channel_id_b). The device work and its copies are the span
+    `noaa.image.lines`, the host walk `noaa.image.calibration`."""
     num_pixels = int(0.5 / K.NOAA_T)           # 2080 px per full line
     half = int(num_pixels * 0.5)               # 1040 per channel
     n_am = int(audio.shape[0])
@@ -273,10 +275,13 @@ def assemble_image(audio: torch.Tensor, rate: int, csync_a: list, csync_b: list,
         spans_b.append((sb, eb))
 
     strip_len = int(len(K.NOAA_SYNCA) * K.NOAA_T * rate)
-    probe, strips_a, strips_b, mats_a, mats_b = image_stage(
-        audio, bp, am_block, strip_len, num_pixels, half, spans_a, spans_b, env)
-    return _calibration_walk(probe, mats_a, mats_b, strips_a, strips_b,
-                             csync_a, ucsync, keep, num_pixels)
+    with span("noaa.image.lines"):
+        probe, strips_a, strips_b, mats_a, mats_b = image_stage(
+            audio, bp, am_block, strip_len, num_pixels, half, spans_a, spans_b,
+            env)
+    with span("noaa.image.calibration"):
+        return _calibration_walk(probe, mats_a, mats_b, strips_a, strips_b,
+                                 csync_a, ucsync, keep, num_pixels)
 
 
 def _calibration_walk(probe, mats_a, mats_b, strips_a, strips_b,

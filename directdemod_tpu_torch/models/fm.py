@@ -24,6 +24,8 @@ class FmDecoder(TimedDecoder):
     device rule, `device.resolve`); `stage_seconds` holds `fm_frontend` and
     `resample`."""
 
+    layer = "fm"
+
     def __init__(self, sigsrc, offset: float, bw: int | None = None,
                  audio_freq: int | None = None, strict: bool = True,
                  dtype=torch.complex64, device=None):

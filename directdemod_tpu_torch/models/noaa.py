@@ -54,7 +54,16 @@ class NoaaDecoder(TimedDecoder):
     "sync_correlate" with 2 n around the crude-sync correlation of n audio
     samples. Where the JAX decoder fuses front end and sync search into one
     "frontend+sync" stage (its resident crude-sync path) the port runs them
-    as two stages and records them under those two names."""
+    as two stages and records them under those two names.
+
+    Spans and counters (`TimedDecoder`) below the stages: the crude sync's
+    `noaa.crude_sync.copy` (the candidates above the thresholds to the
+    host, `noaa.crude_sync.candidates` of them) and `noaa.crude_sync.group`
+    (their grouping, `noaa.crude_sync.syncs` kept), on the path without a
+    mesh; the image's `noaa.image.lines` and `noaa.image.calibration`
+    (`apt.assemble_image`)."""
+
+    layer = "noaa"
 
     def __init__(self, sigsrc, offset: float, bw: int | None = None,
                  device=None, mesh=None):
@@ -151,7 +160,7 @@ class NoaaDecoder(TimedDecoder):
             with self._stage("crude_sync"), \
                     self.profiler.stage("sync_correlate", 2 * int(audio.shape[0])):
                 if self.mesh is None:
-                    self._sync_a, self._sync_b = _crude_sync(audio, rate)
+                    self._sync_a, self._sync_b = self._crude_sync(audio, rate)
                 else:
                     from ..parallel.correlate import sharded_find_sync_peaks
                     env = am_ops.envelope_blocked(audio.float(), AM_BLOCK).cpu().numpy()
@@ -161,8 +170,32 @@ class NoaaDecoder(TimedDecoder):
                             corr_ops.apt_needle(bits, rate, K.NOAA_T, True), rate,
                             K.NOAA_PEAKHEIGHTWIGGLE, K.NOAA_MINPEAKDIST)
                         for bits in (K.NOAA_SYNCA, K.NOAA_SYNCB))
+            self._count("crude_sync.syncs", len(self._sync_a) + len(self._sync_b))
             self._useful = self._usefulness()
         return [self._sync_a, self._sync_b]
+
+    def _crude_sync(self, audio: torch.Tensor, rate: int
+                    ) -> tuple[np.ndarray, np.ndarray]:
+        """Envelope -> fused A/B normalized correlation -> adaptive
+        thresholds -> candidates on the device; min-distance grouping on
+        the host."""
+        needles = _apt_needles(rate, audio.device)
+        env = am_ops.envelope_blocked(audio.float(), AM_BLOCK)
+        cors = corr_ops.norm_correlate_multi_blocked(env, needles)
+        thr, _ = peaks.adaptive_threshold(cors, rate, K.NOAA_PEAKHEIGHTWIGGLE)
+        if cors.device.type == "cuda":
+            # the candidates' nonzero waits for the correlation: wait here,
+            # so that the copy span holds the copies alone
+            torch.cuda.current_stream(cors.device).synchronize()
+        with self._span("crude_sync.copy"):
+            cands = [peaks.candidates_above(cors[row], thr[row]) for row in range(2)]
+        self._count("crude_sync.candidates", sum(len(idx) for idx, _ in cands))
+        with self._span("crude_sync.group"):
+            out = [np.sort(peaks.group_peaks(idx, vals, K.NOAA_MINPEAKDIST * rate)
+                           - needles.shape[-1] // 2)
+                   if len(idx) else np.empty(0, dtype=np.int64)
+                   for idx, vals in cands]
+        return out[0], out[1]
 
     def _usefulness(self) -> int:
         """10 consecutive syncs spaced 0.5 s within 5 samples
@@ -346,24 +379,6 @@ def _apt_needles(rate: int, device) -> torch.Tensor:
     nb = corr_ops.apt_needle(K.NOAA_SYNCB, rate, K.NOAA_T, True)
     return torch.as_tensor(np.stack([na, nb]), dtype=torch.float32,
                            device=device)
-
-
-def _crude_sync(audio: torch.Tensor, rate: int) -> tuple[np.ndarray, np.ndarray]:
-    """Envelope -> fused A/B normalized correlation -> adaptive thresholds
-    -> candidates on the device; min-distance grouping on the host."""
-    needles = _apt_needles(rate, audio.device)
-    env = am_ops.envelope_blocked(audio.float(), AM_BLOCK)
-    cors = corr_ops.norm_correlate_multi_blocked(env, needles)
-    thr, _ = peaks.adaptive_threshold(cors, rate, K.NOAA_PEAKHEIGHTWIGGLE)
-    out = []
-    for row in range(2):
-        idx, vals = peaks.candidates_above(cors[row], thr[row])
-        if len(idx) == 0:
-            out.append(np.empty(0, dtype=np.int64))
-            continue
-        grouped = peaks.group_peaks(idx, vals, K.NOAA_MINPEAKDIST * rate)
-        out.append(np.sort(grouped - needles.shape[-1] // 2))
-    return out[0], out[1]
 
 
 def _window_envelope(batch: torch.Tensor, offset: float, fs: float

@@ -240,7 +240,13 @@ def _host_symbols(syms: pll.Symbols):
 class PskSyncDetector(TimedDecoder):
     """Shared decoder; see FuncubeDecoder / MeteorM2Decoder for the configs.
     `device` and `stage_seconds` (`frontend`, `symbol_scan`, `pass2`) as
-    `TimedDecoder` gives them."""
+    `TimedDecoder` gives them. Pass 2's spans: `psk.pass2.symbols` (a
+    scan's symbols to the host and into the symbol view, counting
+    `psk.pass2.minsyncs`), `psk.pass2.window` (each window to the host,
+    rotated and quantized) and `psk.pass2.correlate` (each frame's
+    correlation, counting `psk.pass2.correlations`)."""
+
+    layer = "psk"
 
     def __init__(self, sigsrc, offset, bw: int, params: pll.PskParams,
                  cfg: _SyncConfig, freq_fn=None,
@@ -343,12 +349,14 @@ class PskSyncDetector(TimedDecoder):
                     _, syms = self._scan_seq(
                         x_f, pll.initial_state(p, len(cfg.sym_sync), 1, dev))
             with self._stage("pass2"):
-                ai, ph, ch, mf = _host_symbols(syms)
-                minsyncs = [(k + 1, int(ai[k])) for k in np.flatnonzero(mf)]
+                with self._span("pass2.symbols"):
+                    ai, ph, ch, mf = _host_symbols(syms)
+                    minsyncs = [(k + 1, int(ai[k])) for k in np.flatnonzero(mf)]
+                    view = _DenseSymbols(ai, ph, ch)
+                self._count("pass2.minsyncs", len(minsyncs))
                 stream = _DeviceStreamChain()
                 stream.append(x_f, 0)
-                self._syncs = self._replay_with_view(
-                    minsyncs, _DenseSymbols(ai, ph, ch), stream)
+                self._syncs = self._replay_with_view(minsyncs, view, stream)
             return self._syncs
 
         scan_state = pll.initial_state(p, len(cfg.sym_sync), 1, dev)
@@ -385,12 +393,14 @@ class PskSyncDetector(TimedDecoder):
                     scan_state["i"][:, pll.I_ANCHOR] -= int(x_f.shape[0])
                     shift = s
             with self._stage("pass2"):
-                ai, ph, ch, mf = _host_symbols(syms)
-                ai = ai + shift
-                base_ctr = len(symbols.a)
-                symbols.append(ai, ph, ch)
-                for k in np.flatnonzero(mf):
-                    minsyncs.append((base_ctr + k + 1, int(ai[k])))
+                with self._span("pass2.symbols"):
+                    ai, ph, ch, mf = _host_symbols(syms)
+                    ai = ai + shift
+                    base_ctr = len(symbols.a)
+                    symbols.append(ai, ph, ch)
+                    new = np.flatnonzero(mf)
+                    minsyncs += [(base_ctr + k + 1, int(ai[k])) for k in new]
+                self._count("pass2.minsyncs", len(new))
                 stream.append(x_f, s)
                 max_syncs = self._drain_corr_jobs(
                     minsyncs, symbols, stream, stream.lo, stream.hi,
@@ -416,7 +426,8 @@ class PskSyncDetector(TimedDecoder):
         finally:
             self._dry_run = False
         (self._consumed, self._open, self._prev_lm, self._stale) = snap
-        cache = _prefetch_windows(stream, rec.ranges)
+        with self._span("pass2.window"):
+            cache = _prefetch_windows(stream, rec.ranges)
         max_syncs = self._drain_corr_jobs(
             minsyncs, view, _CachedStream(stream, cache), stream.lo,
             stream.hi, [], final=True)
@@ -481,8 +492,7 @@ class PskSyncDetector(TimedDecoder):
                 # and it reports maxBuffStart + argmax over that
                 # discontiguous buffer as if it were contiguous -- kept.
                 fresh_ws = max(self._open["first"] + 1, lo)
-                vals = self._quantize_window(
-                    stream.get(fresh_ws, we + 1), fresh_ws, view)
+                vals = self._window(stream, fresh_ws, we + 1, view)
                 report_ws = fresh_ws
                 if self._stale is not None:
                     vals = np.concatenate([self._stale["vals"], vals])
@@ -498,8 +508,7 @@ class PskSyncDetector(TimedDecoder):
                         ws = max(arm_samp + 1,
                                  self._open["first"] + 1 - cap_samples)
                 ws = max(ws, lo)
-                vals = self._quantize_window(
-                    stream.get(ws, we + 1), ws, view)
+                vals = self._window(stream, ws, we + 1, view)
                 report_ws = ws
             needle_i = 0
             if len(cfg.needles) > 1:
@@ -539,8 +548,13 @@ class PskSyncDetector(TimedDecoder):
             return
         self._stale = {
             "ws": ws,
-            "vals": self._quantize_window(
-                stream.get(ws, end_samp + 1), ws, view)}
+            "vals": self._window(stream, ws, end_samp + 1, view)}
+
+    def _window(self, stream, a: int, b: int, view) -> np.ndarray:
+        """Samples [a, b) of the filtered stream to the host, rotated and
+        quantized (the span `psk.pass2.window`)."""
+        with self._span("pass2.window"):
+            return self._quantize_window(stream.get(a, b), a, view)
 
     def _quantize_window(self, seg: np.ndarray, ws: int, view) -> np.ndarray:
         """Rotate by the PLL phasor and quantize like the reference
@@ -563,12 +577,14 @@ class PskSyncDetector(TimedDecoder):
         replay (window discovery) the result is unused: skipped."""
         if self._dry_run:
             return float(report_ws)
-        n, k = len(vals), len(needle)
-        m = 1 << max(n + k - 1, 2).bit_length()
-        full = np.fft.irfft(np.fft.rfft(vals, m)
-                            * np.fft.rfft(needle[::-1], m), m)[: n + k - 1]
-        cor = np.abs(full[(k - 1) // 2: (k - 1) // 2 + n])
-        am = int(np.argmax(cor))
+        self._count("pass2.correlations", 1)
+        with self._span("pass2.correlate"):
+            n, k = len(vals), len(needle)
+            m = 1 << max(n + k - 1, 2).bit_length()
+            full = np.fft.irfft(np.fft.rfft(vals, m)
+                                * np.fft.rfft(needle[::-1], m), m)[: n + k - 1]
+            cor = np.abs(full[(k - 1) // 2: (k - 1) // 2 + n])
+            am = int(np.argmax(cor))
         if self.cfg.entries_per_sample == 1:
             return float(report_ws + am)
         return float(report_ws + am / 2.0)

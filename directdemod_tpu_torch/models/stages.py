@@ -1,4 +1,19 @@
-"""Device choice and per-stage timing shared by the port's decoders."""
+"""Device choice, per-stage timing, spans and counters shared by the port's
+decoders.
+
+Spans: each stage of a decoder is a range `<layer>.<stage>` (`noaa`,
+`psk`, `afsk`, `fm`), and a stage may open child ranges
+`<layer>.<stage>.<child>`, in the trace of a `torch.profiler` session
+(`utils.profiling.trace(logdir)` writes one). Kineto stamps them on the
+timeline of the card's kernels and copies, so an idle stretch of the card
+can be put down to the host work that held it. With no profiler recording
+a span costs a flag check.
+
+Counters: `TimedDecoder.counters` sums the work a decoder did (candidates
+copied, correlations run), always. While a profiler records, each count is
+also added to the session's tally (`session_counts()`), which restarts
+with each session.
+"""
 from __future__ import annotations
 
 import contextlib
@@ -8,30 +23,89 @@ import torch
 
 from ..device import resolve
 
+# the tally of the process's profiler session (`session_counts`)
+_session = {"recording": False, "counts": {}}
+
+
+def _recording() -> bool:
+    """Whether a profiler records in this process now (`torch.profiler`,
+    `utils.profiling.trace`, `torch.autograd.profiler.emit_nvtx`)."""
+    on = bool(torch.autograd.profiler._is_profiler_enabled)
+    if on and not _session["recording"]:
+        _session["counts"] = {}
+    _session["recording"] = on
+    return on
+
+
+def session_counts() -> dict:
+    """The counts added while the current profiler session records, or
+    the last session's once it has stopped: {counter name: total}. The
+    tally restarts at the first span, stage, count or call of this function
+    that finds a profiler recording after one that found none, so a session
+    in which none of them runs leaves the last session's tally."""
+    _recording()
+    return dict(_session["counts"])
+
+
+@contextlib.contextmanager
+def span(name: str):
+    """A `torch.profiler.record_function` range named `name` while a
+    profiler records; nothing otherwise."""
+    if not _recording():
+        yield
+        return
+    with torch.profiler.record_function(name):
+        yield
+
 
 class TimedDecoder:
     """Base of the decoders: `device` follows the port's device rule
     (`device.resolve`: None is the current CUDA device); `stage_seconds`
     accumulates each stage's time (CUDA events on a card, the host clock on
-    the CPU)."""
+    the CPU), `counters` the work counted at the stages' boundaries under
+    `<layer>.<stage>.<counter>`. A subclass names its `layer`."""
+
+    layer: str
 
     def _init_device(self, device) -> None:
         self.device = resolve(device)
         self._timers: list = []
+        self.counters: dict = {}
 
     @contextlib.contextmanager
     def _stage(self, name: str):
-        if self.device.type == "cuda":
+        """Time the body as stage `name` and mark it as the range
+        `<layer>.<name>`; the time is kept when the body raises."""
+        cuda = self.device.type == "cuda"
+        if cuda:
             t0, t1 = torch.cuda.Event(enable_timing=True), \
                 torch.cuda.Event(enable_timing=True)
             t0.record()
-            yield
-            t1.record()
-            self._timers.append((name, t0, t1))
         else:
             t0 = time.perf_counter()
-            yield
-            self._timers.append((name, t0, time.perf_counter()))
+        try:
+            with span(f"{self.layer}.{name}"):
+                yield
+        finally:
+            if cuda:
+                t1.record()
+                self._timers.append((name, t0, t1))
+            else:
+                self._timers.append((name, t0, time.perf_counter()))
+
+    def _span(self, name: str):
+        """The child range `<layer>.<name>`, `name` being
+        `<stage>.<child>`: no timing, no synchronise."""
+        return span(f"{self.layer}.{name}")
+
+    def _count(self, name: str, n: int) -> None:
+        """Add `n` to the counter `<layer>.<name>`, and to the profiler
+        session's tally while one records."""
+        key = f"{self.layer}.{name}"
+        self.counters[key] = self.counters.get(key, 0) + n
+        if _recording():
+            tally = _session["counts"]
+            tally[key] = tally.get(key, 0) + n
 
     @property
     def stage_seconds(self) -> dict:

@@ -254,7 +254,7 @@ def _port_replay_detector(needle, cap, arm_pre, arm_end):
         entries_per_sample=1, cap_entries=cap, arm_pre_syms=arm_pre,
         arm_end_syms=arm_end, frame_spacing=1e9, spacing_tol=1.0)
     det._consumed, det._open, det._prev_lm, det._stale = 0, None, None, None
-    det._dry_run, det._useful = False, 0
+    det._dry_run, det._useful, det.counters = False, 0, {}
     return det
 
 
