@@ -57,10 +57,13 @@ class NoaaDecoder(TimedDecoder):
     as two stages and records them under those two names.
 
     Spans and counters (`TimedDecoder`) below the stages: the crude sync's
-    `noaa.crude_sync.copy` (the candidates above the thresholds to the
-    host, `noaa.crude_sync.candidates` of them) and `noaa.crude_sync.group`
-    (their grouping, `noaa.crude_sync.syncs` kept), on the path without a
-    mesh; the image's `noaa.image.lines` and `noaa.image.calibration`
+    `noaa.crude_sync.group` (both rows grouped on the device, ending with
+    one synchronise; `noaa.crude_sync.candidates` counted there, the
+    samples above the thresholds, and `noaa.crude_sync.device_rows`, the
+    rows grouped) and `noaa.crude_sync.copy` (the one copy of the syncs and
+    that count to the host), on the path without a mesh;
+    `noaa.crude_sync.syncs` kept (the mesh path too); the image's
+    `noaa.image.lines` and `noaa.image.calibration`
     (`apt.assemble_image`)."""
 
     layer = "noaa"
@@ -150,7 +153,8 @@ class NoaaDecoder(TimedDecoder):
     def get_crude_sync(self):
         """Sync locations at the crude rate (ref decode_noaa.py:769-806):
         blocked envelope, fused A/B normalized correlation, adaptive
-        thresholds on the device; peak grouping on the host."""
+        thresholds and the peak grouping on the device (with a mesh: the
+        grouping on the host, over the gathered correlation)."""
         if self._sync_a is None:
             audio, rate = self._fm_audio(K.NOAA_CRUDESYNCSAMPRATE, strict=False)
             self._audio = (audio, rate)
@@ -177,25 +181,30 @@ class NoaaDecoder(TimedDecoder):
     def _crude_sync(self, audio: torch.Tensor, rate: int
                     ) -> tuple[np.ndarray, np.ndarray]:
         """Envelope -> fused A/B normalized correlation -> adaptive
-        thresholds -> candidates on the device; min-distance grouping on
-        the host."""
+        thresholds -> min-distance grouping of both rows, all on the
+        device; one copy of the syncs and the candidates' count to the
+        host."""
         needles = _apt_needles(rate, audio.device)
         env = am_ops.envelope_blocked(audio.float(), AM_BLOCK)
         cors = corr_ops.norm_correlate_multi_blocked(env, needles)
         thr, _ = peaks.adaptive_threshold(cors, rate, K.NOAA_PEAKHEIGHTWIGGLE)
-        if cors.device.type == "cuda":
-            # the candidates' nonzero waits for the correlation: wait here,
-            # so that the copy span holds the copies alone
+        cuda = cors.device.type == "cuda"
+        if cuda:
+            # wait for the correlation, so that the group span holds the
+            # grouping alone
             torch.cuda.current_stream(cors.device).synchronize()
-        with self._span("crude_sync.copy"):
-            cands = [peaks.candidates_above(cors[row], thr[row]) for row in range(2)]
-        self._count("crude_sync.candidates", sum(len(idx) for idx, _ in cands))
         with self._span("crude_sync.group"):
-            out = [np.sort(peaks.group_peaks(idx, vals, K.NOAA_MINPEAKDIST * rate)
-                           - needles.shape[-1] // 2)
-                   if len(idx) else np.empty(0, dtype=np.int64)
-                   for idx, vals in cands]
-        return out[0], out[1]
+            slots = peaks.group_peaks_dense(cors, thr, K.NOAA_MINPEAKDIST * rate)
+            count = (cors > thr[:, None]).sum()
+            if cuda:
+                torch.cuda.current_stream(cors.device).synchronize()
+        with self._span("crude_sync.copy"):
+            host = torch.cat([slots.reshape(-1), count.reshape(1)]).cpu().numpy()
+        self._count("crude_sync.candidates", int(host[-1]))
+        self._count("crude_sync.device_rows", int(cors.shape[0]))
+        n, half = cors.shape[-1], needles.shape[-1] // 2
+        a, b = (row[row < n] - half for row in host[:-1].reshape(2, -1))
+        return a, b
 
     def _usefulness(self) -> int:
         """10 consecutive syncs spaced 0.5 s within 5 samples

@@ -3,11 +3,16 @@
 Port of `directdemod_tpu/ops/peaks.py:36-443`.
 
 The APT sync part: the top-k adaptive threshold, the candidates above it,
-and the min-distance grouping that keeps the maximum of each group. The
-device does the dense work; the sequential grouping walk runs on the host
-over the sparse candidate list. The reference's two-stage blocked top-k and
-its fixed candidate slots were workarounds for its device; `torch.topk` and
-`torch.nonzero` take any size.
+and the min-distance grouping that keeps the maximum of each group. Where
+the correlation is a tensor the grouping runs on its device
+(`group_peaks_dense`: a sliding-window first argmax, pointer jumping to its
+fixed points and a doubled chain of group starts, exactly the walk's
+result); where it is a host array (`host_find_sync_peaks`, the mesh's
+gathered correlation) the sequential walk `group_peaks` runs over the
+sparse candidate list, and it is the plain version the dense one is held
+to. The reference's two-stage blocked top-k and its fixed candidate slots
+were workarounds for its device; `torch.topk` and `torch.nonzero` take any
+size.
 
 The lookahead part (`lookahead_peaks`, ref peakdetect.py:141-254): the
 forward-window extrema are two stride-1 max pools; the alternating max/min
@@ -79,16 +84,137 @@ def group_peaks(indices: np.ndarray, values: np.ndarray,
     return np.sort(np.asarray([o for o in out if o is not None], dtype=np.int64))
 
 
+# int64 key of a sample that is no candidate: below every candidate's
+_NO_KEY = -(1 << 63)
+
+
+def _candidate_keys(cor: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
+    """int64 keys of the (rows, n) float32 `cor` that order its candidates
+    as `group_peaks` compares them: the value's order-preserving bits in the
+    high half (-0.0 taken as +0.0, which Python's compare holds equal) and
+    2^31 - 1 - index in the low half, so that of equal values the earlier
+    index is the larger key, as the walk's strict `<` keeps the earlier;
+    `_NO_KEY` off the candidates (a candidate is never NaN)."""
+    v = torch.where(cor == 0, torch.zeros_like(cor), cor)
+    bits = v.view(torch.int32)
+    order = (bits ^ ((bits >> 31) & 0x7FFFFFFF)).to(torch.int64)
+    low = 0x7FFFFFFF - torch.arange(cor.shape[-1], device=cor.device)
+    key = order * (1 << 32) + low
+    return torch.where(cand, key, torch.full_like(key, _NO_KEY))
+
+
+def _window_first_argmax(key: torch.Tensor, w: int) -> torch.Tensor:
+    """Per row of `key` (rows, n), the local index of the largest key over
+    [p, p + w] at every p (clipped to the row): blocks of w + 1, their
+    prefix and suffix maxima (van Herk / Gil-Werman), one maximum a
+    window."""
+    rows, n = key.shape
+    t = w + 1
+    blocks = -(-(n + w) // t)
+    pad = torch.full((rows, blocks * t - n), _NO_KEY, dtype=key.dtype,
+                     device=key.device)
+    b = torch.cat([key, pad], dim=1).view(rows, blocks, t)
+    pre = b.cummax(-1).values.view(rows, -1)
+    suf = b.flip(-1).cummax(-1).values.flip(-1).view(rows, -1)
+    best = torch.maximum(suf[:, :n], pre[:, w:w + n])
+    return 0x7FFFFFFF - (best & 0xFFFFFFFF)
+
+
+# samples a block of the two-level scan in `_next_candidate`
+_SCAN_BLOCK = 4096
+
+
+def _take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] for a 1-D `table`, in `idx`'s shape (`index_select`
+    reads int32 indices as they are)."""
+    return table.index_select(0, idx.reshape(-1)).view(idx.shape)
+
+
+def _next_candidate(cand: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(rows, n + 1) table of the first candidate at or after each index
+    of a row of the (rows, n) mask, n where there is none: suffix minima in
+    blocks of `_SCAN_BLOCK`, then over the blocks (one scan down a whole
+    row runs on few threads of the card)."""
+    rows, n = cand.shape
+    b = _SCAN_BLOCK
+    blocks = -(-(n + 1) // b)
+    pad = torch.zeros((rows, blocks * b - n), dtype=torch.bool, device=cand.device)
+    at = torch.arange(blocks * b, device=cand.device, dtype=dtype)
+    val = torch.where(torch.cat([cand, pad], 1), at, n).view(rows, blocks, b)
+    inner = val.flip(-1).cummin(-1).values.flip(-1)
+    later = inner[:, :, 0].flip(-1).cummin(-1).values.flip(-1)
+    later = torch.cat([later[:, 1:], torch.full_like(later[:, :1], n)], 1)
+    return torch.minimum(inner, later[:, :, None]).view(rows, -1)[:, :n + 1]
+
+
+def group_peaks_dense(cor: torch.Tensor, threshold, min_dist: float
+                      ) -> torch.Tensor:
+    """`group_peaks` of the candidates above `threshold` of each row of the
+    float32 `cor` ((rows, n) with one threshold a row, or (n,) with one),
+    on `cor`'s device with no host round trip.
+
+    With T = ceil(min_dist) (at least 1, at most n) and W = T - 1, the walk
+    from a state b = p, p a candidate, meets no break up to p + W and holds
+    there f(p), the first argmax of the candidates over [p, p + W]; every
+    later candidate of that window is no greater and lies within W of f(p),
+    so the state is that of f(p) seen up to f(p). A group therefore starts
+    at a candidate c, is emitted as F*(c), the fixed point of f from c, and
+    the next starts at the first candidate at or after F*(c) + T. So: f by
+    one sliding-window maximum of `_candidate_keys`; F* by pointer jumping
+    F <- F[F] (two hops that do not end on a fixed point move past the
+    first window, so a chain holds at most 2 ((n - 1) // T) + 1 hops);
+    G(c), that next start, and the chain of starts from the first candidate
+    by doubling G (starts lie T apart, so at most (n - 1) // T + 1 of
+    them). The rounds are the bounds', fixed.
+
+    Returns an int64 tensor on `cor`'s device, (rows, slots) or (slots,):
+    each row's emitted indices in increasing order, equal to the walk's,
+    then n in the slots left over. Indices are int32 where they fit."""
+    if cor.dtype != torch.float32:
+        raise ValueError(f"cor must be float32, got {cor.dtype}")
+    one_row = cor.dim() == 1
+    c = cor.reshape(1, -1) if one_row else cor
+    if c.dim() != 2:
+        raise ValueError(f"cor must be (n,) or (rows, n), got {tuple(cor.shape)}")
+    rows, n = c.shape
+    if n >= 1 << 31:
+        raise ValueError(f"rows of {n} samples: at most 2^31 - 1")
+    thr = torch.as_tensor(threshold, dtype=torch.float32, device=c.device)
+    cand = c > thr.reshape(-1, 1)
+    t = min(max(1, math.ceil(min_dist)), max(n, 1))
+    m = n + 1                                   # a row of the tables: n + sentinel
+    itype = torch.int32 if rows * m < 1 << 31 else torch.int64
+    dev = c.device
+    off = (torch.arange(rows, device=dev, dtype=itype) * m).reshape(-1, 1)
+    sentinel = torch.full((rows, 1), n, device=dev, dtype=itype)
+
+    # F = f on the candidates, the identity elsewhere; global indices
+    f = _window_first_argmax(_candidate_keys(c, cand), t - 1).to(itype)
+    own = torch.arange(n, device=dev, dtype=itype)
+    fs = (torch.cat([torch.where(cand, f, own), sentinel], 1) + off).reshape(-1)
+    for _ in range((2 * ((n - 1) // t)).bit_length() if n else 0):
+        fs = _take(fs, fs)
+    nxt = (_next_candidate(cand, itype) + off).reshape(-1)
+    reach = torch.clamp(fs.view(rows, m) - off + t, max=n)
+    g = _take(nxt, reach + off).reshape(-1)
+    starts = nxt.view(rows, m)[:, :1]
+    rounds = ((n - 1) // t).bit_length() if n else 0
+    for k in range(rounds):
+        starts = torch.cat([starts, _take(g, starts)], 1)
+        if k + 1 < rounds:
+            g = _take(g, g)
+    out = (_take(fs, starts) - off).to(torch.int64)
+    return out.reshape(-1) if one_row else out
+
+
 def find_sync_peaks(cor: torch.Tensor, samp_rate: float, needle_len: int,
                     wiggle: float, min_dist_s: float) -> np.ndarray:
-    """Full APT peak pipeline on a 1-D correlation; returns sync *start*
-    indices (peak centers shifted back by needle_len // 2)."""
+    """Full APT peak pipeline on a 1-D correlation, grouped on its device;
+    returns sync *start* indices (peak centers shifted back by
+    needle_len // 2)."""
     thr, _ = adaptive_threshold(cor, samp_rate, wiggle)
-    idx, vals = candidates_above(cor, thr)
-    if len(idx) == 0:
-        return np.empty(0, dtype=np.int64)
-    return np.sort(group_peaks(idx, vals, min_dist_s * samp_rate)
-                   - needle_len // 2)
+    slots = group_peaks_dense(cor, thr, min_dist_s * samp_rate).cpu().numpy()
+    return slots[slots < cor.shape[-1]] - needle_len // 2
 
 
 def host_find_sync_peaks(cor: np.ndarray, samp_rate: float, needle_len: int,

@@ -4,8 +4,10 @@ in a CPU `torch.profiler` trace.
 Stated checks (exact): a NOAA decode of the 12-line `tests.apt_synth`
 capture held as raw bytes (`DeviceRawSource`, the resident path) puts every
 stage and child span in the trace, each child inside its parent; its
-candidate counter equals what `ops.peaks.candidates_above` returned and its
-sync counter the syncs it kept; a Funcube decode on the block loop opens one
+candidate counter equals the samples above the thresholds of the one
+`ops.peaks.group_peaks_dense` call (its arguments' `(cor > thr).sum()`),
+its rows counter the two rows that call grouped and its sync counter the
+syncs it kept; a Funcube decode on the block loop opens one
 `psk.pass2.symbols` span a block and one `psk.pass2.correlate` span a
 counted correlation; with no profiler the session's tally stays as it was;
 two sessions keep two tallies; a stage whose body raises closes its range
@@ -75,18 +77,17 @@ def _raw(iq: np.ndarray) -> torch.Tensor:
 
 @pytest.fixture(scope="module")
 def noaa_traced(tmp_path_factory):
-    """The decode under a profiler, `candidates_above` wrapped to count what
-    it returns."""
+    """The decode under a profiler, `group_peaks_dense` wrapped to count
+    the samples above the thresholds it is given."""
     iq, _ = synthesize(n_lines=12, snr_db=20)
     returned = []
-    orig = peaks.candidates_above
+    orig = peaks.group_peaks_dense
 
-    def counting(cor, threshold):
-        idx, vals = orig(cor, threshold)
-        returned.append(len(idx))
-        return idx, vals
+    def counting(cor, threshold, min_dist):
+        returned.append(int((cor > threshold.reshape(-1, 1)).sum()))
+        return orig(cor, threshold, min_dist)
 
-    peaks.candidates_above = counting
+    peaks.group_peaks_dense = counting
     try:
         dec = NoaaDecoder(DeviceRawSource(_raw(iq), FS), 30000, device="cpu")
         with _profile() as prof:
@@ -94,7 +95,7 @@ def noaa_traced(tmp_path_factory):
             dec.get_image()
             dec.get_accurate_sync()
     finally:
-        peaks.candidates_above = orig
+        peaks.group_peaks_dense = orig
     tally = stages.session_counts()
     return {"dec": dec, "returned": returned, "tally": tally,
             "ranges": _ranges(prof, tmp_path_factory.mktemp("noaa") / "t.json")}
@@ -126,8 +127,9 @@ def test_noaa_spans_nest_in_their_stages(noaa_traced):
 def test_noaa_counters_count_candidates_and_syncs(noaa_traced):
     dec, returned = noaa_traced["dec"], noaa_traced["returned"]
     sa, sb = dec.get_crude_sync()
-    assert len(returned) == 2 and sum(returned) > len(sa) + len(sb) > 0
+    assert len(returned) == 1 and sum(returned) > len(sa) + len(sb) > 0
     assert dec.counters == {"noaa.crude_sync.candidates": sum(returned),
+                            "noaa.crude_sync.device_rows": 2,
                             "noaa.crude_sync.syncs": len(sa) + len(sb)}
     # the whole decode ran under the session
     assert noaa_traced["tally"] == dec.counters
