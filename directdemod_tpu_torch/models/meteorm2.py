@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 
 from .. import constants as K
+from ..constants import PROC_CHUNKSIZE
 from ..ops.pll import PskParams
 from .psk_sync import PskSyncDetector, _SyncConfig
 
@@ -39,8 +40,8 @@ def _needle(bits: np.ndarray) -> np.ndarray:
 
 
 class MeteorM2Decoder(PskSyncDetector):
-    def __init__(self, sigsrc, offset, bw=None, n_segments=None, device=None,
-                 mesh=None):
+    def __init__(self, sigsrc, offset, bw=None, block_size=None,
+                 n_segments=None, device=None, mesh=None):
         bw = int(bw) if bw else K.METEOR_DEFAULT_BW
         params = PskParams(
             fs=sigsrc.sampFreq, sym_rate=K.METEOR_SYMRATE, qpsk=True,
@@ -57,6 +58,7 @@ class MeteorM2Decoder(PskSyncDetector):
             frame_spacing=K.METEOR_FRAME_SPACING_S * sigsrc.sampFreq,
             spacing_tol=0.05 * sigsrc.sampFreq)
         super().__init__(sigsrc, offset, bw, params, cfg,
+                         block_size=block_size or PROC_CHUNKSIZE,
                          n_segments=n_segments, device=device, mesh=mesh)
 
     @property

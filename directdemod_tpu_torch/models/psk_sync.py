@@ -243,8 +243,12 @@ class PskSyncDetector(TimedDecoder):
     `TimedDecoder` gives them. Pass 2's spans: `psk.pass2.symbols` (a
     scan's symbols to the host and into the symbol view, counting
     `psk.pass2.minsyncs`), `psk.pass2.window` (each window to the host,
-    rotated and quantized) and `psk.pass2.correlate` (each frame's
-    correlation, counting `psk.pass2.correlations`)."""
+    rotated and quantized, counting `psk.pass2.windows` outside the whole-
+    capture path's dry run) and `psk.pass2.correlate` (each frame's
+    correlation, counting `psk.pass2.correlations`). The symbol scan counts
+    `psk.symbol_scan.symbols` and, for a sequential scan that the step
+    budget stopped with samples left, `psk.symbol_scan.budget_stops` and
+    `psk.symbol_scan.samples_left` (`_count_scan`)."""
 
     layer = "psk"
 
@@ -304,6 +308,17 @@ class PskSyncDetector(TimedDecoder):
         return pll.symbol_scan(self.p, x, state, self.cfg.sym_sync,
                                self.cfg.sym_sync_alt)
 
+    def _count_scan(self, syms: pll.Symbols, n: int) -> None:
+        """Count a sequential scan of an n-sample block: its symbols and,
+        where the step budget stopped it with samples left (the scan's own
+        flag, `pll.LAST_TRUNCATED`), the stop and the samples after its
+        last A index."""
+        self._count("symbol_scan.symbols", syms.count)
+        if pll.LAST_TRUNCATED:
+            self._count("symbol_scan.budget_stops", 1)
+            self._count("symbol_scan.samples_left",
+                        n - 1 - int(syms.a_idx[-1].item()))
+
     def _scan_seg(self, x, owned_start: int):
         """Segment scan of x; returns the owned symbols in segment order."""
         syms, _, owned = pll.symbol_scan_segments(
@@ -345,9 +360,11 @@ class PskSyncDetector(TimedDecoder):
             with self._stage("symbol_scan"):
                 if parallel:
                     syms = self._scan_seg(x_f, 0)
+                    self._count("symbol_scan.symbols", syms.count)
                 else:
                     _, syms = self._scan_seq(
                         x_f, pll.initial_state(p, len(cfg.sym_sync), 1, dev))
+                    self._count_scan(syms, int(x_f.shape[0]))
             with self._stage("pass2"):
                 with self._span("pass2.symbols"):
                     ai, ph, ch, mf = _host_symbols(syms)
@@ -386,10 +403,12 @@ class PskSyncDetector(TimedDecoder):
                     prefix = int(filt_prefix.shape[0])
                     xw = torch.cat([filt_prefix, x_f]) if prefix else x_f
                     syms = self._scan_seg(xw, prefix)
+                    self._count("symbol_scan.symbols", syms.count)
                     filt_prefix = xw[-warm:]
                     shift = s - prefix
                 else:
                     scan_state, syms = self._scan_seq(x_f, scan_state)
+                    self._count_scan(syms, int(x_f.shape[0]))
                     scan_state["i"][:, pll.I_ANCHOR] -= int(x_f.shape[0])
                     shift = s
             with self._stage("pass2"):
@@ -553,6 +572,8 @@ class PskSyncDetector(TimedDecoder):
     def _window(self, stream, a: int, b: int, view) -> np.ndarray:
         """Samples [a, b) of the filtered stream to the host, rotated and
         quantized (the span `psk.pass2.window`)."""
+        if not self._dry_run:
+            self._count("pass2.windows", 1)
         with self._span("pass2.window"):
             return self._quantize_window(stream.get(a, b), a, view)
 

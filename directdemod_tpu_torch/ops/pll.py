@@ -57,6 +57,9 @@ log = logging.getLogger(__name__)
 # Number of K3 kernel launches in this process (the plain version does not
 # count).
 LAUNCHES = 0
+# Whether the last `symbol_scan` stopped at the step budget with samples
+# left (K3's flag, or the plain version's).
+LAST_TRUNCATED = False
 
 
 @dataclass(frozen=True)
@@ -537,8 +540,10 @@ def symbol_scan(p: PskParams, x: torch.Tensor, state: dict, sync, sync1
     rebased the anchor by the block length. Returns the new state and the
     valid symbols, indices local to `x`. Like the JAX scan it takes at most
     `max_symbols` steps; a scan that stops there with samples left is
-    logged as a warning."""
+    logged as a warning and left in `LAST_TRUNCATED`."""
+    global LAST_TRUNCATED
     new, syms, _, trunc = _scan(p, x, state, sync, sync1, [0], int(x.shape[0]))
+    LAST_TRUNCATED = trunc[0]
     _warn_truncated(trunc, max_symbols(p, int(x.shape[0])))
     return new, syms
 
