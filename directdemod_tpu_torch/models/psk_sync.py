@@ -9,17 +9,21 @@ package, in two passes:
   pass 1 (the decoder's device): unpack, chunk-local NCO, the continuous
   Butterworth low-pass of the complex stream, and the symbol-rate scan
   (`ops/pll`, K3 on a card), sequential or segment-parallel;
-  pass 2 (host NumPy): the per-sample buffering and countdown replayed
-  over the symbol -> sample map, the buffered values gathered from the
-  filtered stream (kept on the device) and rotated by the piecewise-
-  constant PLL phasor, one FFT correlation per detected frame.
+  pass 2: the per-sample buffering and countdown replayed on the host over
+  the symbol -> sample map (`_Pass2._walk`), which emits each frame's
+  correlation as a job of sample ranges; then one batched chain a block on
+  the decoder's device (`_Pass2._run`) gathers the block's windows from the
+  filtered stream (kept on the device), rotates them by the piecewise-
+  constant PLL phasor, quantizes them and correlates them with the needles
+  in float64. The syncs stay on the device until the decode ends.
 
 The NCO phase restarts at every chunk and the low-pass carries state across
 chunks: both reference quirks are kept. `get_syncs` keeps the JAX
 package's two dispatch shapes: the whole capture at once (up to
 `_CAPTURE_SEG_MAX` samples, default block size, no Doppler track) and the
-block loop. The valid symbols come to the host in one copy per scan
-(~14 B a symbol) and pass 2 reads them densely; the JAX package's sparse
+block loop; both feed pass 2 block by block. The A indices of the valid
+symbols come to the host in one copy per scan (8 B a symbol), their phases
+and needle choices stay on the device; the JAX package's sparse
 event/span gathers, its event cap and its `_CoverageError` fallback existed
 for its device link and are not ported (its sparse path is pinned equal to
 the dense one). With `mesh=` (`parallel.mesh`) the segment scan runs over
@@ -28,8 +32,9 @@ a shard), in the block loop, as the JAX decoder does.
 """
 from __future__ import annotations
 
+import bisect
 import logging
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -48,9 +53,9 @@ _CAPTURE_SEG_MAX = 128_000_000
 
 class _DeviceStreamChain:
     """The retained span of the filtered stream: contiguous blocks kept on
-    the decoder's device, each with its global first sample. `get` copies
-    one window to the host; a window may straddle block boundaries (parts
-    copy separately and join on the host)."""
+    the decoder's device, each with its global first sample. `gather`
+    reads windows out of the blocks in place; a window may straddle block
+    boundaries."""
 
     def __init__(self):
         self.segs: list = []       # [(device tensor, global lo)], contiguous
@@ -69,16 +74,16 @@ class _DeviceStreamChain:
         arr, lo = self.segs[-1]
         return lo + int(arr.shape[0])
 
-    def get(self, a: int, b: int) -> np.ndarray:
-        parts = []
-        for arr, lo in self.segs:
-            hi = lo + int(arr.shape[0])
-            aa, bb = max(a, lo), min(b, hi)
-            if bb > aa:
-                parts.append(arr[aa - lo: bb - lo].cpu().numpy())
-        if not parts:
-            return np.empty(0, dtype=np.complex64)
-        return parts[0] if len(parts) == 1 else np.concatenate(parts)
+    def gather(self, idx: torch.Tensor) -> torch.Tensor:
+        """The samples at the global indices `idx` (a device tensor of any
+        shape, inside [lo, hi) where it matters: others read a clamped
+        neighbour), one gather from each block."""
+        arr, lo = self.segs[-1]
+        out = arr[(idx - lo).clamp(0, int(arr.shape[0]) - 1)]
+        for arr, lo in self.segs[-2::-1]:
+            n = int(arr.shape[0])
+            out = torch.where(idx < lo + n, arr[(idx - lo).clamp(0, n - 1)], out)
+        return out
 
     def prune(self, keep_from: int) -> None:
         """Drop whole blocks that end at or before `keep_from`."""
@@ -86,139 +91,111 @@ class _DeviceStreamChain:
                      if lo + int(arr.shape[0]) > keep_from]
 
 
-class _RecordingStream:
-    """Dry-run stand-in for a stream: records every requested window range
-    and returns zeros. Pass 2's control flow (arming windows, countdowns,
-    retriggers) depends only on the symbol streams, never on the window
-    sample values, so a dry run discovers exactly which spans the real run
-    will read."""
-
-    def __init__(self, inner):
-        self.inner = inner
-        self.ranges: list = []
-
-    @property
-    def lo(self) -> int:
-        return self.inner.lo
-
-    @property
-    def hi(self) -> int:
-        return self.inner.hi
-
-    def get(self, a: int, b: int) -> np.ndarray:
-        a2, b2 = max(a, self.lo), min(b, self.hi)
-        if b2 <= a2:
-            return np.empty(0, dtype=np.complex64)
-        self.ranges.append((a2, b2))
-        return np.zeros(b2 - a2, dtype=np.complex64)
-
-
-class _CachedStream:
-    """Serves the ranges a _RecordingStream discovered from one batched
-    gather; anything else falls through to the inner stream."""
-
-    def __init__(self, inner, cache: dict):
-        self.inner = inner
-        self.cache = cache
-
-    @property
-    def lo(self) -> int:
-        return self.inner.lo
-
-    @property
-    def hi(self) -> int:
-        return self.inner.hi
-
-    def get(self, a: int, b: int) -> np.ndarray:
-        a2, b2 = max(a, self.lo), min(b, self.hi)
-        hit = self.cache.get((a2, b2))
-        return hit if hit is not None else self.inner.get(a, b)
-
-
-def _prefetch_windows(chain: _DeviceStreamChain, ranges: list) -> dict:
-    """One device gather and one copy for all of pass 2's correlation
-    windows. Returns {(a, b): host window}."""
-    if not ranges:
-        return {}
-    arrs = [a for a, _ in chain.segs]
-    base = chain.lo
-    full = arrs[0] if len(arrs) == 1 else torch.cat(arrs)
-    n = int(full.shape[0])
-    size = min(n, max(b - a for a, b in ranges))
-    starts = [min(max(a - base, 0), n - size) for a, _ in ranges]
-    idx = (torch.tensor(starts, dtype=torch.int64, device=full.device)[:, None]
-           + torch.arange(size, device=full.device)[None, :])
-    wins = full[idx].cpu().numpy()
-    cache = {}
-    for (a, b), s0, row in zip(ranges, starts, wins):
-        off = (a - base) - int(s0)
-        cache[(a, b)] = row[off: off + (b - a)]
-    return cache
-
-
-class _DenseSymbols:
-    """Pass-2 symbol-stream view over the host copies of a scan's symbols:
-    A-sample indices, phases and needle choices, in symbol order."""
-
-    def __init__(self, a: np.ndarray, ph: np.ndarray, ch: np.ndarray):
-        self.a, self.ph, self.ch = a, ph, ch
-
-    def sym_sample(self, j: int):
-        """Global sample of 0-based symbol j (ctr becomes j+1 there)."""
-        return int(self.a[j]) if 0 <= j < len(self.a) else None
-
-    def phase_at(self, n_arr: np.ndarray) -> np.ndarray:
-        """PLL phase in effect at samples n_arr: the phase of the last
-        symbol with a_idx < n (pllObj.output is updated when a symbol
-        processes -- ref decode_funcube.py:61)."""
-        pos = np.searchsorted(self.a, n_arr, side="left") - 1
-        return np.where(pos >= 0, self.ph[np.clip(pos, 0, None)], 0.0)
-
-    def chosen_before(self, n: int) -> int:
-        pos = np.searchsorted(self.a, n, side="left") - 1
-        return int(self.ch[pos]) if pos >= 0 else 0
-
-
-class _GrowingSymbols(_DenseSymbols):
-    """The block loop's _DenseSymbols: each block's symbols are appended
-    into arrays that grow by doubling, where the JAX package concatenates
-    every block's symbols again at each block (quadratic in the capture
-    length). The lookups are the same."""
+class _SymbolStore:
+    """Pass 2's view of the scans' symbols, in symbol order. The host holds
+    every block's A sample indices (the arming walk reads them through
+    `sym_sample`) with the count of symbols before the block. The device
+    holds the A indices, PLL phases and needle choices of the blocks whose
+    symbols a window may still read, and the phase and choice of the last
+    symbol before them (`table`)."""
 
     def __init__(self):
-        self._n = 0
-        self._bufs = (np.empty(0, np.int64), np.empty(0, np.float32),
-                      np.empty(0, np.int64))
+        self.count = 0
+        self._bases: list = []     # symbols before each block
+        self._host: list = []      # each block's A indices, numpy int64
+        self._dev: list = []       # [(last A index or None, a, ph, ch)]
+        self._carry = None         # (ph, ch) of the last symbol dropped
 
-    def append(self, a, ph, ch) -> None:
-        n, k = self._n, len(a)
-        if n + k > len(self._bufs[0]):
-            cap = max(2 * len(self._bufs[0]), n + k)
-            self._bufs = tuple(np.concatenate([b[:n], np.empty(cap - n, b.dtype)])
-                               for b in self._bufs)
-        for b, v in zip(self._bufs, (a, ph, ch)):
-            b[n:n + k] = v
-        self._n = n + k
+    def append(self, a: torch.Tensor, ph: torch.Tensor,
+               ch: torch.Tensor) -> np.ndarray:
+        """Add a block's symbols (global A indices, phases, choices);
+        returns its A indices on the host (one copy)."""
+        host = a.cpu().numpy()
+        self._bases.append(self.count)
+        self._host.append(host)
+        self.count += len(host)
+        self._dev.append((int(host[-1]) if len(host) else None, a, ph,
+                          ch.to(torch.int64)))
+        return host
 
-    a = property(lambda self: self._bufs[0][:self._n])
-    ph = property(lambda self: self._bufs[1][:self._n])
-    ch = property(lambda self: self._bufs[2][:self._n])
+    def sym_sample(self, j: int):
+        """Global sample of 0-based symbol j (ctr becomes j+1 there); None
+        past the symbols so far."""
+        if not 0 <= j < self.count:
+            return None
+        b = bisect.bisect_right(self._bases, j) - 1
+        return int(self._host[b][j - self._bases[b]])
+
+    def prune(self, lo: int) -> None:
+        """Drop the device arrays of the leading blocks whose symbols all
+        lie before sample `lo`, keeping the last one's phase and choice."""
+        while self._dev and (self._dev[0][0] is None or self._dev[0][0] < lo):
+            last, _, ph, ch = self._dev.pop(0)
+            if last is not None:
+                self._carry = (ph[-1:], ch[-1:])
+
+    def table(self, device) -> tuple:
+        """(A indices, phases, choices) on the device, the phases and
+        choices led by the last dropped symbol's (0 and 0 before any):
+        row `searchsorted(a, n)` of them is then the last symbol's with A
+        index < n, the phase in effect at sample n (pllObj.output is updated
+        when a symbol processes -- ref decode_funcube.py:61) and the needle
+        chosen before it."""
+        ph0, ch0 = self._carry or (
+            torch.zeros(1, dtype=torch.float32, device=device),
+            torch.zeros(1, dtype=torch.int64, device=device))
+        a = [d[1] for d in self._dev]
+        a = a[0] if len(a) == 1 else torch.cat(
+            a or [torch.zeros(0, dtype=torch.int64, device=device)])
+        return (a, torch.cat([ph0] + [d[2] for d in self._dev]),
+                torch.cat([ch0] + [d[3] for d in self._dev]))
 
 
-def _lim(x: np.ndarray) -> np.ndarray:
+@dataclass(eq=False)
+class _Window:
+    """Samples [a, b) of the filtered stream, rotated and quantized in the
+    device batch of the block that gathers them. A stale snapshot (`keep`)
+    holds its entries in `vals` for a later batch, since its samples may be
+    pruned before the job that reads them runs."""
+    a: int
+    b: int
+    keep: bool = False
+    vals: torch.Tensor | None = field(default=None, repr=False)
+
+
+@dataclass(eq=False)
+class _Job:
+    """One frame correlation: the entries of its windows joined in order (a
+    past-end job: the stale snapshot, then the fresh samples), reported as
+    `report_ws` + argmax, with the needle chosen before sample `we`."""
+    parts: list
+    report_ws: int
+    we: int
+
+
+def _lim(x: torch.Tensor) -> torch.Tensor:
     """ref decode_funcube.py:88-97: clamp to [-128,127], values in (0,1)->1,
-    (-1,0)->-1, else int truncation."""
-    out = np.trunc(x)
-    out = np.where((x > 0) & (x < 1), 1, out)
-    out = np.where((x > -1) & (x < 0), -1, out)
-    return np.clip(out, -128, 127)
+    (-1,0)->-1, else int truncation (those are the values that truncate to
+    zero without being zero: their sign)."""
+    t = torch.trunc(x)
+    return torch.where(t == 0, torch.sign(x), t).clamp(-128, 127)
+
+
+def _to_device(host: np.ndarray, device) -> torch.Tensor:
+    """A host array on `device` without waiting for the device's queue: a
+    pinned, non-blocking copy on a card."""
+    t = torch.from_numpy(host)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 @dataclass
 class _SyncConfig:
     sym_sync: np.ndarray        # 0/1 pattern at symbol rate (buffer compare)
     sym_sync_alt: np.ndarray    # QPSK alternate (== sym_sync for BPSK)
-    needles: list               # +-128-valued full-rate needles (1 or 3)
+    needles: list               # +-128-valued full-rate needles (1 or 3), of
+    #                             one length
     entries_per_sample: int     # 1 bpsk, 2 qpsk (interleaved I/Q)
     cap_entries: int            # maxResBuff cap (2 * len(needle))
     arm_pre_syms: int           # arming starts at ctr > lastMin + this
@@ -227,28 +204,283 @@ class _SyncConfig:
     spacing_tol: float          # usefulness tolerance (samples)
 
 
-def _host_symbols(syms: pll.Symbols):
-    """(a_idx int64, phase float32, chosen int64, minsync bool) numpy
-    arrays of a scan's symbols: one copy from the device."""
-    a = syms.a_idx.cpu().numpy()
-    ph = syms.phase_out.cpu().numpy()
-    ch = syms.chosen.cpu().numpy().astype(np.int64)
-    mf = syms.minsync.cpu().numpy()
-    return a, ph, ch, mf
+class _Pass2:
+    """Pass 2 of one decode, fed block by block (`add_block`): the arming
+    and countdown walk on the host (`_walk`), which emits a job a frame
+    correlation, and one device batch a block that runs the block's jobs
+    (`_run`). The syncs collect on the device; `syncs` copies them to the
+    host once. `dec` is the decoder: its `cfg`, `device`, spans and
+    counters."""
+
+    def __init__(self, dec: "PskSyncDetector"):
+        self.dec = dec
+        self.cfg = cfg = dec.cfg
+        self.device = dec.device
+        self.stream = _DeviceStreamChain()
+        self.symbols = _SymbolStore()
+        self.minsyncs: list = []    # (symbol_number(ctr), global_sample)
+        # a window reaches at most this far before the retained stream's end
+        self.max_win = 2 * (cfg.cap_entries // cfg.entries_per_sample) + 8
+        self.found: list = []       # float64 device tensors of syncs
+        self._needles = None        # reversed needles, float64 on the device
+        self._spectra: dict = {}    # FFT size -> the needles' spectra
+        # the walk's state
+        self._consumed = 0          # minsync events fully absorbed
+        self._open = None           # open correlation cluster
+        self._prev_lm = None        # lastMin before the open cluster
+        self._stale = None          # _Window of the armed-window buffer left
+        #                             after the arming end passed with no
+        #                             trigger (see _snapshot_stale)
+
+    def add_block(self, x_f: torch.Tensor, start: int, syms: pll.Symbols,
+                  shift: int, final: bool) -> None:
+        """Feed one block: its filtered samples from global sample `start`
+        and its scan's symbols, whose A indices are `shift` less than
+        global ones. `final`: the capture ends with the block."""
+        dec = self.dec
+        with dec._span("pass2.symbols"):
+            base = self.symbols.count
+            a = self.symbols.append(syms.a_idx + shift, syms.phase_out,
+                                    syms.chosen)
+            new = np.flatnonzero(syms.minsync.cpu().numpy())
+            self.minsyncs += [(base + k + 1, int(a[k])) for k in new]
+        dec._count("pass2.minsyncs", len(new))
+        self.stream.append(x_f, start)
+        self._walk(self.stream.lo, self.stream.hi, final)
+        self.stream.prune(self.stream.hi - self.max_win)
+        self.symbols.prune(self.stream.lo)
+
+    def syncs(self) -> list:
+        """Every sync found so far, in order: one copy to the host."""
+        return torch.cat(self.found).tolist() if self.found else []
+
+    # ------------------------------------------------------------ the walk
+    def _walk(self, lo: int, hi: int, final: bool) -> None:
+        """Advance the arming/countdown state machine over newly seen minsync
+        events; a correlation whose countdown completes inside the
+        available stream [lo, hi) becomes a job. The walk reads only the
+        symbols' A indices, never window values; the block's jobs then run
+        in one device batch."""
+        cfg = self.cfg
+        cap_samples = cfg.cap_entries // cfg.entries_per_sample
+        countdown = cfg.cap_entries + 1          # samples past the last trigger
+        minsyncs = self.minsyncs
+        windows: list = []
+        jobs: list = []
+
+        while True:
+            if self._open is None:
+                if self._consumed >= len(minsyncs):
+                    # arming window may have closed with no trigger this
+                    # chunk: preserve its buffer for a later-cluster replay
+                    self._snapshot_stale(None, lo, hi, cap_samples, windows)
+                    break
+                ctr_t, samp_t = minsyncs[self._consumed]
+                self._snapshot_stale(ctr_t, lo, hi, cap_samples, windows)
+                self._consumed += 1
+                self._open = {"first": samp_t, "first_ctr": ctr_t,
+                              "last": samp_t, "last_ctr": ctr_t,
+                              "prev_lm": self._prev_lm}
+            # absorb retriggers within the countdown (retain reset,
+            # ref decode_funcube.py:294)
+            while (self._consumed < len(minsyncs)
+                   and minsyncs[self._consumed][1]
+                   <= self._open["last"] + countdown):
+                ctr_t, samp_t = minsyncs[self._consumed]
+                self._consumed += 1
+                self._open["last"] = samp_t
+                self._open["last_ctr"] = ctr_t
+            corr_at = self._open["last"] + countdown
+            if corr_at >= hi:
+                if final:
+                    # capture ended mid-countdown: the reference never
+                    # correlates this cluster
+                    self._prev_lm = self._open["last_ctr"]
+                    self._open = None
+                    self._stale = None
+                    continue
+                break
+            prev_lm = self._open["prev_lm"]
+            we = corr_at
+            past_end = (prev_lm is not None
+                        and self._open["first_ctr"]
+                        > prev_lm + cfg.arm_end_syms)
+            if past_end:
+                # the trigger fired AFTER the arming window closed
+                # (ref decode_funcube.py:241's end clause): the reference's
+                # buffer then holds the STALE tail of the closed armed
+                # window plus the fresh countdown samples after the trigger,
+                # and it reports maxBuffStart + argmax over that
+                # discontiguous buffer as if it were contiguous -- kept.
+                fresh = _Window(max(self._open["first"] + 1, lo), we + 1)
+                windows.append(fresh)
+                job = _Job([fresh], fresh.a, we)
+                if self._stale is not None:
+                    job = _Job([self._stale, fresh], self._stale.a, we)
+            else:
+                # window start: pre-trigger sliding buffer begins at the
+                # arming boundary of the *previous* frame's lastMin, capped
+                # to the buffer size (ref decode_funcube.py:240-249)
+                ws = self._open["first"] + 1
+                if prev_lm is not None:
+                    arm_samp = self.symbols.sym_sample(
+                        prev_lm + cfg.arm_pre_syms)
+                    if arm_samp is not None and arm_samp + 1 < ws:
+                        ws = max(arm_samp + 1,
+                                 self._open["first"] + 1 - cap_samples)
+                win = _Window(max(ws, lo), we + 1)
+                windows.append(win)
+                job = _Job([win], win.a, we)
+            jobs.append(job)
+            self._prev_lm = self._open["last_ctr"]
+            self._open = None
+            self._stale = None
+        self._run(windows, jobs)
+
+    def _snapshot_stale(self, next_ctr, lo, hi, cap_samples, windows) -> None:
+        """Capture the sliding buffer of an armed window that closed with no
+        trigger (ref decode_funcube.py:240-241: buffering stops once
+        ctr > lastMin + arm_end_syms but maxResBuff is only cleared by a
+        correlation, so its last `cap` samples survive until the next
+        trigger). Called with `next_ctr` = the next pending trigger's symbol
+        count (None at chunk end when no trigger is pending). The snapshot
+        is a window of this block's batch."""
+        cfg = self.cfg
+        if self._stale is not None or self._prev_lm is None:
+            return
+        boundary = self._prev_lm + cfg.arm_end_syms
+        if next_ctr is not None and next_ctr <= boundary:
+            return                      # window got a trigger: no stale buffer
+        end_samp = self.symbols.sym_sample(boundary)
+        if end_samp is None or end_samp >= hi:
+            return                      # window still open / not streamed yet
+        arm_samp = self.symbols.sym_sample(self._prev_lm + cfg.arm_pre_syms)
+        ws = end_samp + 1 - cap_samples
+        if arm_samp is not None:
+            ws = max(ws, arm_samp + 1)
+        ws = max(ws, lo)
+        if ws > end_samp:
+            return
+        self._stale = _Window(ws, end_samp + 1, keep=True)
+        windows.append(self._stale)
+
+    # -------------------------------------------------------- the executor
+    def _run(self, windows: list, jobs: list) -> None:
+        """One device batch: gather, rotate and quantize every window of the
+        block (the span `psk.pass2.window`), then correlate every job with
+        its needle (`psk.pass2.correlate`). Nothing here waits for the
+        device: the jobs' plan goes over in one non-blocking copy and the
+        syncs stay on the device."""
+        if not windows:
+            return
+        dec, dev = self.dec, self.device
+        eps = self.cfg.entries_per_sample
+        dec._count("pass2.windows", len(windows))
+        n_w = len(windows)
+        rows = {id(w): r for r, w in enumerate(windows)}
+        lq = eps * max(w.b - w.a for w in windows)
+        # each job's entries are pool[first + t], and pool[first + t + jump]
+        # from its second part on (at `split`), for t < its length: the pool
+        # is the batch's quantized windows, then stale snapshots of past
+        # batches
+        extras, off, lv = [], n_w * lq, 0
+        plan = [w.a for w in windows]
+        for job in jobs:
+            parts = []
+            for w in job.parts:
+                if id(w) in rows:
+                    parts.append((rows[id(w)] * lq, eps * (w.b - w.a)))
+                else:
+                    extras.append(w.vals)
+                    parts.append((off, int(w.vals.shape[0])))
+                    off += parts[-1][1]
+            (first, split), (second, _) = parts[0], parts[-1]
+            length = sum(n for _, n in parts)
+            lv = max(lv, length)
+            plan += [first, split, second - first - split, length,
+                     job.report_ws, job.we]
+        plan = _to_device(np.asarray(plan, dtype=np.int64), dev)
+        table = self.symbols.table(dev)
+        with dec._span("pass2.window"):
+            q = self._quantize(plan[:n_w], lq // eps, table)
+            for r, w in enumerate(windows):
+                if w.keep:
+                    w.vals = q[r, :eps * (w.b - w.a)].clone()
+            if not jobs:
+                return
+            jp = plan[n_w:].view(len(jobs), 6)
+            t = torch.arange(lv, device=dev)
+            idx = jp[:, 0:1] + t + (t >= jp[:, 1:2]) * jp[:, 2:3]
+            pool = torch.cat([q.reshape(-1)] + extras) if extras else q.reshape(-1)
+            inside = t < jp[:, 3:4]
+            v = torch.where(inside, pool[idx.clamp(0, pool.numel() - 1)], 0.0)
+        dec._count("pass2.batches", 1)
+        dec._count("pass2.correlations", len(jobs))
+        with dec._span("pass2.correlate"):
+            self.found.append(self._correlate(
+                v, inside, jp[:, 4], jp[:, 5].contiguous(), table))
+
+    def _quantize(self, starts, n: int, table) -> torch.Tensor:
+        """n samples of the stream from each of `starts`, rotated by the PLL
+        phasor in effect at each sample and quantized like the reference
+        (ref decode_funcube.py:243 `lim(real(i*pllObj.output)/2)`), I and Q
+        interleaved for QPSK: (windows, n * entries_per_sample) float64.
+        Entries past a window's own end are not its own: callers read each
+        row's window alone."""
+        a_tab, ph_tab, _ = table
+        idx = starts[:, None] + torch.arange(n, device=starts.device)
+        rot = self.stream.gather(idx) * torch.exp(
+            -1j * ph_tab[torch.searchsorted(a_tab, idx)])
+        if self.cfg.entries_per_sample == 1:
+            q = _lim(rot.real / 2.0)
+        else:
+            q = _lim(torch.view_as_real(rot) / 2.0).reshape(len(idx), -1)
+        return q.to(torch.float64)
+
+    def _correlate(self, v, inside, report_ws, we, table) -> torch.Tensor:
+        """|correlate(v, needle, 'same')| first argmax of each row, reported
+        as maxBuffStart + argmax (ref decode_funcube.py:253-255), half an
+        entry a sample for QPSK: a float64 FFT, zero-padded to the power of
+        two the batch's longest row needs. Rows and needles are whole
+        numbers, so the correlation is too: rounding it removes the FFT's
+        error (far below 0.5 at these lengths) and leaves ties to the first
+        index, as np.correlate's exact sums do."""
+        cfg, dev = self.cfg, self.device
+        k = len(cfg.needles[0])
+        lv = int(v.shape[1])
+        m = 1 << (lv + k - 2).bit_length()
+        if self._needles is None:
+            self._needles = _to_device(
+                np.stack([np.asarray(nd, np.float64)[::-1] for nd in cfg.needles]),
+                dev)
+        if m not in self._spectra:
+            self._spectra[m] = torch.fft.rfft(self._needles, m)
+        spec = self._spectra[m]
+        if len(cfg.needles) > 1:
+            a_tab, _, ch_tab = table
+            spec = spec[ch_tab[torch.searchsorted(a_tab, we)]]
+        full = torch.fft.irfft(torch.fft.rfft(v, m) * spec, m)
+        h = (k - 1) // 2
+        cor = torch.where(inside, full[:, h:h + lv].abs().round(), -1.0)
+        am = cor.argmax(dim=1)
+        return (report_ws.to(torch.float64)
+                + am.to(torch.float64) / cfg.entries_per_sample)
 
 
 class PskSyncDetector(TimedDecoder):
     """Shared decoder; see FuncubeDecoder / MeteorM2Decoder for the configs.
     `device` and `stage_seconds` (`frontend`, `symbol_scan`, `pass2`) as
     `TimedDecoder` gives them. Pass 2's spans: `psk.pass2.symbols` (a
-    scan's symbols to the host and into the symbol view, counting
-    `psk.pass2.minsyncs`), `psk.pass2.window` (each window to the host,
-    rotated and quantized, counting `psk.pass2.windows` outside the whole-
-    capture path's dry run) and `psk.pass2.correlate` (each frame's
-    correlation, counting `psk.pass2.correlations`). The symbol scan counts
-    `psk.symbol_scan.symbols` and, for a sequential scan that the step
-    budget stopped with samples left, `psk.symbol_scan.budget_stops` and
-    `psk.symbol_scan.samples_left` (`_count_scan`)."""
+    scan's A indices and minsync flags to the host and into the symbol
+    store, counting `psk.pass2.minsyncs`), `psk.pass2.window` (a block's
+    batch gathering, rotating and quantizing its windows on the device,
+    counting `psk.pass2.windows`, stale snapshots included) and
+    `psk.pass2.correlate` (the batch's frame correlations on the device,
+    counting `psk.pass2.correlations`, and the batch in
+    `psk.pass2.batches`). The symbol scan counts `psk.symbol_scan.symbols`
+    and, for a sequential scan that the step budget stopped with samples
+    left, `psk.symbol_scan.budget_stops` and `psk.symbol_scan.samples_left`
+    (`_count_scan`)."""
 
     layer = "psk"
 
@@ -282,14 +514,6 @@ class PskSyncDetector(TimedDecoder):
         self._init_device(device)
         self._useful = 0
         self._syncs = None
-        self._dry_run = False
-        # pass-2 incremental state
-        self._consumed = 0        # minsync events fully absorbed
-        self._open = None         # open correlation cluster
-        self._prev_lm = None      # lastMin before the open cluster
-        self._stale = None        # armed-window buffer left after the arming
-        #                           end passed with no trigger (see
-        #                           _maybe_snapshot_stale)
 
     @property
     def useful(self) -> int:
@@ -340,13 +564,14 @@ class PskSyncDetector(TimedDecoder):
                  if self.offset != 0.0 else 0.0)
         plan = plan_blocks(self.src.length, self.block_size)
         anch_cache: dict = {}
+        pass2 = _Pass2(self)
 
         if (self.mesh is None and self.freq_fn is None
                 and self.block_size == PROC_CHUNKSIZE
                 and self.src.length <= _CAPTURE_SEG_MAX):
             # whole-capture path: unpack, per-chunk NCO, continuous
             # low-pass, then one scan (sequential or capture-level
-            # segmented) and one copy of its symbols
+            # segmented) and pass 2 over it as one block
             with self._stage("frontend"):
                 _, _, x = next(iter(BlockFeeder(self.src, self.src.length, dev)))
                 if x.dtype == torch.uint8:
@@ -366,24 +591,13 @@ class PskSyncDetector(TimedDecoder):
                         x_f, pll.initial_state(p, len(cfg.sym_sync), 1, dev))
                     self._count_scan(syms, int(x_f.shape[0]))
             with self._stage("pass2"):
-                with self._span("pass2.symbols"):
-                    ai, ph, ch, mf = _host_symbols(syms)
-                    minsyncs = [(k + 1, int(ai[k])) for k in np.flatnonzero(mf)]
-                    view = _DenseSymbols(ai, ph, ch)
-                self._count("pass2.minsyncs", len(minsyncs))
-                stream = _DeviceStreamChain()
-                stream.append(x_f, 0)
-                self._syncs = self._replay_with_view(minsyncs, view, stream)
+                pass2.add_block(x_f, 0, syms, 0, final=True)
+                self._syncs = self._finalize(pass2.syncs())
             return self._syncs
 
         scan_state = pll.initial_state(p, len(cfg.sym_sync), 1, dev)
         filt_prefix = torch.zeros(0, dtype=torch.complex64, device=dev)
         warm = int(self.warmup_symbols * p.symbol_period)
-        symbols = _GrowingSymbols()
-        minsyncs: list = []       # (symbol_number(ctr), global_sample)
-        max_syncs: list = []
-        stream = _DeviceStreamChain()
-        max_win = 2 * (cfg.cap_entries // cfg.entries_per_sample) + 8
         feed = BlockFeeder(self.src, self.block_size, dev)
         for ci, (s, e, x) in enumerate(feed):
             with self._stage("frontend"):
@@ -412,206 +626,21 @@ class PskSyncDetector(TimedDecoder):
                     scan_state["i"][:, pll.I_ANCHOR] -= int(x_f.shape[0])
                     shift = s
             with self._stage("pass2"):
-                with self._span("pass2.symbols"):
-                    ai, ph, ch, mf = _host_symbols(syms)
-                    ai = ai + shift
-                    base_ctr = len(symbols.a)
-                    symbols.append(ai, ph, ch)
-                    new = np.flatnonzero(mf)
-                    minsyncs += [(base_ctr + k + 1, int(ai[k])) for k in new]
-                self._count("pass2.minsyncs", len(new))
-                stream.append(x_f, s)
-                max_syncs = self._drain_corr_jobs(
-                    minsyncs, symbols, stream, stream.lo, stream.hi,
-                    max_syncs, final=(ci == len(plan) - 1))
-                stream.prune(stream.hi - max_win)
+                last = ci == len(plan) - 1
+                pass2.add_block(x_f, s, syms, shift, final=last)
+                if last:
+                    self._syncs = self._finalize(pass2.syncs())
 
-        self._syncs = self._finalize(max_syncs)
+        if self._syncs is None:                 # an empty capture
+            self._syncs = self._finalize([])
         return self._syncs
 
-    # ---------------------------------------------------------------- pass 2
-    def _replay_with_view(self, minsyncs, view, stream) -> list:
-        """Dry-run the replay to discover the needed windows, gather them
-        in one device gather and one copy, then replay for real (the walk's
-        control flow never depends on window sample values), and
-        finalize."""
-        snap = (self._consumed, dict(self._open) if self._open else None,
-                self._prev_lm, dict(self._stale) if self._stale else None)
-        rec = _RecordingStream(stream)
-        self._dry_run = True
-        try:
-            self._drain_corr_jobs(minsyncs, view, rec, stream.lo, stream.hi,
-                                  [], final=True)
-        finally:
-            self._dry_run = False
-        (self._consumed, self._open, self._prev_lm, self._stale) = snap
-        with self._span("pass2.window"):
-            cache = _prefetch_windows(stream, rec.ranges)
-        max_syncs = self._drain_corr_jobs(
-            minsyncs, view, _CachedStream(stream, cache), stream.lo,
-            stream.hi, [], final=True)
-        return self._finalize(max_syncs)
-
-    def _drain_corr_jobs(self, minsyncs, view, stream, lo, hi, max_syncs,
-                         final=False):
-        """Advance the arming/countdown state machine over newly seen minsync
-        events; run correlations whose countdown completes inside the
-        available stream [lo, hi). `view` is the _DenseSymbols of every
-        symbol so far, `stream` a _DeviceStreamChain or a stand-in with its
-        `lo`, `hi` and `get`."""
-        cfg = self.cfg
-        eps = cfg.entries_per_sample
-        cap_samples = cfg.cap_entries // eps
-        countdown = cfg.cap_entries + 1          # samples past the last trigger
-
-        while True:
-            if self._open is None:
-                if self._consumed >= len(minsyncs):
-                    # arming window may have closed with no trigger this
-                    # chunk: preserve its buffer for a later-cluster replay
-                    self._maybe_snapshot_stale(
-                        None, view, stream, lo, hi, cap_samples)
-                    break
-                ctr_t, samp_t = minsyncs[self._consumed]
-                self._maybe_snapshot_stale(
-                    ctr_t, view, stream, lo, hi, cap_samples)
-                self._consumed += 1
-                self._open = {"first": samp_t, "first_ctr": ctr_t,
-                              "last": samp_t, "last_ctr": ctr_t,
-                              "prev_lm": self._prev_lm}
-            # absorb retriggers within the countdown (retain reset,
-            # ref decode_funcube.py:294)
-            while (self._consumed < len(minsyncs)
-                   and minsyncs[self._consumed][1]
-                   <= self._open["last"] + countdown):
-                ctr_t, samp_t = minsyncs[self._consumed]
-                self._consumed += 1
-                self._open["last"] = samp_t
-                self._open["last_ctr"] = ctr_t
-            corr_at = self._open["last"] + countdown
-            if corr_at >= hi:
-                if final:
-                    # capture ended mid-countdown: the reference never
-                    # correlates this cluster
-                    self._prev_lm = self._open["last_ctr"]
-                    self._open = None
-                    self._stale = None
-                    continue
-                break
-            prev_lm = self._open["prev_lm"]
-            we = corr_at
-            past_end = (prev_lm is not None
-                        and self._open["first_ctr"]
-                        > prev_lm + cfg.arm_end_syms)
-            if past_end:
-                # the trigger fired AFTER the arming window closed
-                # (ref decode_funcube.py:241's end clause): the reference's
-                # buffer then holds the STALE tail of the closed armed
-                # window plus the fresh countdown samples after the trigger,
-                # and it reports maxBuffStart + argmax over that
-                # discontiguous buffer as if it were contiguous -- kept.
-                fresh_ws = max(self._open["first"] + 1, lo)
-                vals = self._window(stream, fresh_ws, we + 1, view)
-                report_ws = fresh_ws
-                if self._stale is not None:
-                    vals = np.concatenate([self._stale["vals"], vals])
-                    report_ws = self._stale["ws"]
-            else:
-                # window start: pre-trigger sliding buffer begins at the
-                # arming boundary of the *previous* frame's lastMin, capped
-                # to the buffer size (ref decode_funcube.py:240-249)
-                ws = self._open["first"] + 1
-                if prev_lm is not None:
-                    arm_samp = view.sym_sample(prev_lm + cfg.arm_pre_syms)
-                    if arm_samp is not None and arm_samp + 1 < ws:
-                        ws = max(arm_samp + 1,
-                                 self._open["first"] + 1 - cap_samples)
-                ws = max(ws, lo)
-                vals = self._window(stream, ws, we + 1, view)
-                report_ws = ws
-            needle_i = 0
-            if len(cfg.needles) > 1:
-                needle_i = view.chosen_before(we)
-            sync_pos = self._correlate_vals(vals, report_ws,
-                                            cfg.needles[needle_i])
-            max_syncs.append(sync_pos)
-            log.info("MAXSYNC %s", sync_pos)
-            self._prev_lm = self._open["last_ctr"]
-            self._open = None
-            self._stale = None
-        return max_syncs
-
-    def _maybe_snapshot_stale(self, next_ctr, view, stream, lo, hi,
-                              cap_samples):
-        """Capture the sliding buffer of an armed window that closed with no
-        trigger (ref decode_funcube.py:240-241: buffering stops once
-        ctr > lastMin + arm_end_syms but maxResBuff is only cleared by a
-        correlation, so its last `cap` samples survive until the next
-        trigger). Called with `next_ctr` = the next pending trigger's symbol
-        count (None at chunk end when no trigger is pending)."""
-        cfg = self.cfg
-        if self._stale is not None or self._prev_lm is None:
-            return
-        boundary = self._prev_lm + cfg.arm_end_syms
-        if next_ctr is not None and next_ctr <= boundary:
-            return                      # window got a trigger: no stale buffer
-        end_samp = view.sym_sample(boundary)
-        if end_samp is None or end_samp >= hi:
-            return                      # window still open / not streamed yet
-        arm_samp = view.sym_sample(self._prev_lm + cfg.arm_pre_syms)
-        ws = end_samp + 1 - cap_samples
-        if arm_samp is not None:
-            ws = max(ws, arm_samp + 1)
-        ws = max(ws, lo)
-        if ws > end_samp:
-            return
-        self._stale = {
-            "ws": ws,
-            "vals": self._window(stream, ws, end_samp + 1, view)}
-
-    def _window(self, stream, a: int, b: int, view) -> np.ndarray:
-        """Samples [a, b) of the filtered stream to the host, rotated and
-        quantized (the span `psk.pass2.window`)."""
-        if not self._dry_run:
-            self._count("pass2.windows", 1)
-        with self._span("pass2.window"):
-            return self._quantize_window(stream.get(a, b), a, view)
-
-    def _quantize_window(self, seg: np.ndarray, ws: int, view) -> np.ndarray:
-        """Rotate by the PLL phasor and quantize like the reference
-        (ref decode_funcube.py:243 `lim(real(i*pllObj.output)/2)`)."""
-        cfg = self.cfg
-        n_arr = ws + np.arange(len(seg))
-        ph = view.phase_at(n_arr)
-        rot = seg * np.exp(-1j * ph)
-        if cfg.entries_per_sample == 1:
-            return _lim(np.real(rot) / 2.0)
-        vals = np.empty(2 * len(seg))
-        vals[0::2] = _lim(np.real(rot) / 2.0)
-        vals[1::2] = _lim(np.imag(rot) / 2.0)
-        return vals
-
-    def _correlate_vals(self, vals: np.ndarray, report_ws: int,
-                        needle: np.ndarray) -> float:
-        """|correlate('same')| argmax, reported as maxBuffStart + argmax
-        (ref decode_funcube.py:253-255), as a host FFT. During a dry-run
-        replay (window discovery) the result is unused: skipped."""
-        if self._dry_run:
-            return float(report_ws)
-        self._count("pass2.correlations", 1)
-        with self._span("pass2.correlate"):
-            n, k = len(vals), len(needle)
-            m = 1 << max(n + k - 1, 2).bit_length()
-            full = np.fft.irfft(np.fft.rfft(vals, m)
-                                * np.fft.rfft(needle[::-1], m), m)[: n + k - 1]
-            cor = np.abs(full[(k - 1) // 2: (k - 1) // 2 + n])
-            am = int(np.argmax(cor))
-        if self.cfg.entries_per_sample == 1:
-            return float(report_ws + am)
-        return float(report_ws + am / 2.0)
-
     def _finalize(self, max_syncs: list) -> list:
+        """Usefulness from the spacing of every sync found, and the syncs
+        after the first."""
         cfg = self.cfg
+        for s in max_syncs:
+            log.info("MAXSYNC %s", s)
         if max_syncs:
             d = np.abs(np.diff(max_syncs) - cfg.frame_spacing)
             if len(d) and np.min(d) < cfg.spacing_tol:

@@ -30,7 +30,11 @@ tests of the stage split, segments over blocks and the carried state hold
 state rows and phases equal bit for bit); PSK
 decodes on the card and the CPU must give the same syncs within 2 samples
 (their low-pass filters sum in another order), Meteor's from its second
-reported sync on."""
+reported sync on; pass 2 on the card and on the CPU over the same filtered
+blocks and symbols must give the same syncs (both correlate whole numbers
+and round, so only a quantized entry that truncates the other way, where
+the card's complex64 rotation differs in its last bit, could move one)."""
+import json
 import os
 import sys
 
@@ -51,6 +55,7 @@ from directdemod_tpu_torch.models.frontend import DdcFm, DdcFmStream  # noqa: E4
 from directdemod_tpu_torch.models.noaa import NoaaDecoder  # noqa: E402
 from directdemod_tpu_torch.models.funcube import FuncubeDecoder  # noqa: E402
 from directdemod_tpu_torch.models.meteorm2 import MeteorM2Decoder  # noqa: E402
+from directdemod_tpu_torch.models import psk_sync  # noqa: E402
 from directdemod_tpu_torch.ops import ddc, design, peaks, pll  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -676,6 +681,77 @@ def test_funcube_block_loop_on_the_card_matches_cpu(dev):
     assert out["cuda"][2] == 6 and out["cpu"][2] == 0
     assert out["cuda"][1] == out["cpu"][1] == 1 and len(out["cuda"][0]) == 1
     assert np.max(np.abs(np.subtract(out["cuda"][0], out["cpu"][0]))) <= 2
+
+
+def _meteor_capture(dev):
+    """A 3-s Meteor capture of the benchmark's QPSK synthesizer."""
+    from benchmarks.synth import qpsk
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmarks", "configs", "meteor_qpsk.json")) as f:
+        cfg = json.load(f)
+    raw, starts = qpsk.pass_bytes(
+        3.0, cfg["sample_rate"], cfg["symbol_rate"], cfg["sync_entries"], 0.05,
+        cfg["frame_spacing_s"], cfg["amplitude"], cfg["rrc_rolloff"],
+        cfg["rrc_span_symbols"] // 2, cfg["offset_hz"] + cfg["carrier_error_hz"],
+        2.0, int(cfg["pll"]["minsync_thresh"]), dev, 2 ** 31 + 16)
+    return MeteorM2Decoder, raw, 4000, starts
+
+
+def _funcube_capture(dev):
+    raw, starts = synth_funcube_bytes(11.0, dev, seed=8)
+    return FuncubeDecoder, raw, FC_OFFSET_HZ, starts
+
+
+@pytest.mark.parametrize("capture, block_size", [
+    (_funcube_capture, 4_000_000), (_funcube_capture, None),
+    (_meteor_capture, 1_000_000)], ids=["funcube_blocks", "funcube_whole",
+                                        "meteor_blocks"])
+def test_pass2_batch_on_the_card_matches_cpu(dev, monkeypatch, capture, block_size):
+    """Pass 2 on the card against pass 2 on the CPU over the same blocks:
+    every block the card's pass 2 takes is copied to a CPU pass 2 as well,
+    and each device batch runs under `torch.cuda.set_sync_debug_mode` at
+    "error", so a batch that waits for the card raises. The syncs of the
+    two must be equal; the card's reach the host once."""
+    twins, copies = {}, []
+    add, run, syncs = (psk_sync._Pass2.add_block, psk_sync._Pass2._run,
+                       psk_sync._Pass2.syncs)
+
+    def add_block(self, x_f, start, syms, shift, final):
+        if self.device.type == "cuda":
+            if self not in twins:
+                cpu = object.__new__(type(self.dec))
+                cpu.cfg = self.cfg
+                cpu._init_device("cpu")
+                twins[self] = psk_sync._Pass2(cpu)
+            twins[self].add_block(x_f.cpu(), start,
+                                  pll.Symbols(*(t.cpu() for t in syms)), shift, final)
+        return add(self, x_f, start, syms, shift, final)
+
+    def run_checked(self, windows, jobs):
+        if self.device.type != "cuda":
+            return run(self, windows, jobs)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return run(self, windows, jobs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def counted(self):
+        copies.append(self.device.type)
+        return syncs(self)
+    monkeypatch.setattr(psk_sync._Pass2, "add_block", add_block)
+    monkeypatch.setattr(psk_sync._Pass2, "_run", run_checked)
+    monkeypatch.setattr(psk_sync._Pass2, "syncs", counted)
+    cls, raw, offset, starts = capture(dev)
+    dec = cls(sources.DeviceRawSource(raw, FS), offset, block_size=block_size,
+              device=dev)
+    got = dec.get_syncs()
+    assert dec.useful == 1 and len(got) >= len(starts) - 2
+    assert copies == ["cuda"]
+    (card, cpu), = twins.items()
+    assert card.syncs() == cpu.syncs()
+    assert card.dec.counters["psk.pass2.correlations"] == len(got) + 1
+    assert card.dec.counters["psk.pass2.batches"] >= 1
 
 
 def test_meteor_decode_on_the_card_matches_cpu(dev):

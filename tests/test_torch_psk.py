@@ -241,21 +241,26 @@ def test_scan_rejects_bad_arguments():
 
 # ------------------------------------------------------------------- pass 2
 
-def _chain(stream: np.ndarray, lo: int) -> psk_sync._DeviceStreamChain:
-    chain = psk_sync._DeviceStreamChain()
-    chain.append(torch.from_numpy(stream), lo)
-    return chain
-
-
-def _port_replay_detector(needle, cap, arm_pre, arm_end):
+def _port_replay(needle, cap, arm_pre, arm_end):
+    """A detector with the fixture's config and its pass 2, on the CPU."""
     det = object.__new__(psk_sync.PskSyncDetector)
     det.cfg = psk_sync._SyncConfig(
         sym_sync=np.zeros(4), sym_sync_alt=np.zeros(4), needles=[needle],
         entries_per_sample=1, cap_entries=cap, arm_pre_syms=arm_pre,
         arm_end_syms=arm_end, frame_spacing=1e9, spacing_tol=1.0)
-    det._consumed, det._open, det._prev_lm, det._stale = 0, None, None, None
-    det._dry_run, det._useful, det.counters = False, 0, {}
-    return det
+    det._init_device("cpu")
+    det._useful = 0
+    return det, psk_sync._Pass2(det)
+
+
+def _fixture_symbols(minsyncs, a_idx, phases, chosens, lo=0, hi=None):
+    """The fixture's symbols [lo, hi) as a scan returns them (float32
+    phases)."""
+    flags = np.zeros(len(a_idx), bool)
+    flags[[c - 1 for c, _ in minsyncs]] = True
+    return pll.Symbols(*(torch.from_numpy(np.ascontiguousarray(v[lo:hi]))
+                         for v in (a_idx, phases.astype(np.float32), flags,
+                                   chosens)))
 
 
 @pytest.mark.parametrize("trigger_ctrs", [{41, 76}, {41, 66}, {41, 76, 78}])
@@ -264,15 +269,15 @@ def test_replay_matches_reference_buffer_oracle(trigger_ctrs):
      minsyncs, a_idx, phases, chosens) = _arming_fixture(trigger_ctrs)
     want = _reference_buffer_oracle(vals, sym_samples, trigger_ctrs, needle,
                                     cap, arm_pre, arm_end)
-    det = _port_replay_detector(needle, cap, arm_pre, arm_end)
-    view = psk_sync._DenseSymbols(a_idx, phases, chosens)
-    got = det._drain_corr_jobs(minsyncs, view, _chain(stream, 0), 0,
-                               len(stream), [], final=True)
+    det, p2 = _port_replay(needle, cap, arm_pre, arm_end)
+    p2.add_block(torch.from_numpy(stream), 0,
+                 _fixture_symbols(minsyncs, a_idx, phases, chosens), 0, final=True)
+    got = p2.syncs()
     assert got == want
-    # the whole-capture form: dry run, one batched gather, replay
-    det = _port_replay_detector(needle, cap, arm_pre, arm_end)
-    got = det._replay_with_view(minsyncs, view, _chain(stream, 0))
-    assert got == want[1:] and det.useful == 0
+    # the whole capture's product: the syncs after the first, one batch
+    assert det._finalize(got) == want[1:] and det.useful == 0
+    assert det.counters["psk.pass2.batches"] == 1
+    assert det.counters["psk.pass2.correlations"] == len(want)
 
 
 def test_replay_stale_window_across_chunk_boundary():
@@ -281,20 +286,20 @@ def test_replay_stale_window_across_chunk_boundary():
      minsyncs, a_idx, phases, chosens) = _arming_fixture(trigger_ctrs)
     want = _reference_buffer_oracle(vals, sym_samples, trigger_ctrs, needle,
                                     cap, arm_pre, arm_end)
-    det = _port_replay_detector(needle, cap, arm_pre, arm_end)
+    det, p2 = _port_replay(needle, cap, arm_pre, arm_end)
     split = int(sym_samples[71]) + 5
     n_sym1 = int(np.searchsorted(sym_samples, split))
-    ms1 = [m for m in minsyncs if m[0] <= n_sym1]
-    got = det._drain_corr_jobs(
-        ms1, psk_sync._DenseSymbols(a_idx[:n_sym1], phases[:n_sym1],
-                                    chosens[:n_sym1]),
-        _chain(stream[:split], 0), 0, split, [], final=False)
-    tail_start = split - min(split, 2 * cap + 8)
-    got = det._drain_corr_jobs(
-        minsyncs, psk_sync._DenseSymbols(a_idx, phases, chosens),
-        _chain(stream[tail_start:], tail_start), tail_start, len(stream), got,
-        final=True)
-    assert got == want
+    p2.add_block(torch.from_numpy(stream[:split]), 0,
+                 _fixture_symbols(minsyncs, a_idx, phases, chosens, 0, n_sym1),
+                 0, final=False)
+    # the first block's stale snapshot is quantized in its own batch; the
+    # retained stream keeps only the tail a window can reach
+    assert p2._stale is not None and p2._stale.vals is not None
+    assert p2.stream.lo == 0 and det.counters["psk.pass2.windows"] == 2
+    p2.add_block(torch.from_numpy(stream[split:]), split,
+                 _fixture_symbols(minsyncs, a_idx, phases, chosens, n_sym1),
+                 0, final=True)
+    assert p2.syncs() == want
 
 
 # ------------------------------------------------------------------- decoders
