@@ -16,6 +16,7 @@ import torch
 from ..constants import PROC_CHUNKSIZE
 from ..device import resolve
 from ..stream.plan import plan_blocks
+from .sources import device_bytes
 
 _NP_COMPLEX = {torch.complex64: np.complex64, torch.complex128: np.complex128}
 
@@ -23,10 +24,10 @@ _NP_COMPLEX = {torch.complex64: np.complex64, torch.complex128: np.complex128}
 class BlockFeeder:
     """Iterate (start, end, block) over a source's block plan, each block a
     tensor on `device` (the port's device rule, `device.resolve`): raw
-    interleaved uint8 bytes when the source has them (`read_raw_device` or
-    `read_raw`) and `raw` is true, else `dtype` (complex64 or complex128)
-    samples from `read`. `blocks` replaces the plan of `block_size`
-    blocks (e.g. the rest of a plan after a checkpoint)."""
+    interleaved uint8 bytes when the source has them (`sources.device_bytes`
+    or `read_raw`) and `raw` is true, else `dtype` (complex64 or complex128)
+    samples from `read`. `blocks` replaces the plan of `block_size` blocks
+    (e.g. the rest of a plan after a checkpoint, or one whole block)."""
 
     def __init__(self, source, block_size: int = PROC_CHUNKSIZE, device=None,
                  dtype=torch.complex64, raw: bool = True, blocks=None):
@@ -39,9 +40,10 @@ class BlockFeeder:
 
     def __iter__(self):
         src = self.source
-        if self.raw and callable(getattr(src, "read_raw_device", None)):
+        held = device_bytes(src) if self.raw else None
+        if held is not None:
             for s, e in self.plan:
-                yield s, e, src.read_raw_device(s, e).to(self.device)
+                yield s, e, held[2 * s: 2 * e].to(self.device)
             return
         if self.raw and callable(getattr(src, "read_raw", None)):
             read, np_dtype = src.read_raw, np.uint8

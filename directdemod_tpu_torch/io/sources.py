@@ -198,6 +198,18 @@ class DeviceRawSource(_Windowed):
         return _u8_to_c64(self.read_raw(from_index, to_index))
 
 
+def device_bytes(sigsrc, device=None) -> torch.Tensor | None:
+    """The (windowed) source's raw uint8 bytes when it holds them on a
+    device (`read_raw_device`), on `device` if given; else None. The one
+    test of where a capture's bytes lie."""
+    read = getattr(sigsrc, "read_raw_device", None)
+    if not callable(read):
+        return None
+    if device is not None and sigsrc.device != torch.device(device):
+        return None
+    return read(0, sigsrc.length)
+
+
 def resident_copy(sigsrc, device) -> DeviceRawSource | None:
     """The (already windowed) source's raw bytes as a DeviceRawSource on
     `device`, or None (with a log line) when they should not go there: on a

@@ -8,14 +8,13 @@ bit unstuffing -> CRC-16 check -> AX.25 header/payload parse.
 The audio is the port's FM front end (`models/frontend.DdcFm`), which
 computes exactly what the reference's complex-output front end followed by
 its whole-stream discriminator angle(c[1:] conj(c[:-1]) rot) computes:
-raw bytes held on the decoder's device go through `resident_frontend`
-(block 0 through `fir_decimate`, the rest through one K1 launch), any other
-source through `DdcFmStream` block by block. The rest of the chain runs on
-the decoder's device either way; only the sparse peak events and the baud
-means go to the host, where the bit layer and framing are NumPy as in the
-reference. Indices are int64 throughout; the reference's float32 (hi, lo)
-index packing, its event cap and the overflow fallback to a host chain are
-not ported (K2's event buffer cannot overflow).
+raw bytes held on the decoder's device go through `DdcFmStream` as one
+block (one K1 launch), any other source block by block. The rest of the
+chain runs on the decoder's device either way; only the sparse peak events
+and the baud means go to the host, where the bit layer and framing are
+NumPy as in the reference. Indices are int64 throughout; the reference's
+float32 (hi, lo) index packing, its event cap and the overflow fallback to
+a host chain are not ported (K2's event buffer cannot overflow).
 
 As in the JAX package, `get_msg` returns the decoded AX.25 payload (the
 reference stores a hardcoded placeholder, ref decode_afsk1200.py:283).
@@ -31,7 +30,7 @@ import torch.nn.functional as F
 
 from .. import constants as K
 from ..io.feeder import BlockFeeder
-from ..io.sources import resident_copy
+from ..io.sources import device_bytes, resident_copy
 from ..ops import crc, design, fir, iir, peaks
 from .frontend import DdcFm, DdcFmStream
 from .stages import TimedDecoder
@@ -96,33 +95,22 @@ class Afsk1200Decoder(TimedDecoder):
             rate, K.AFSK_MARK_HZ - 500, K.AFSK_SPACE_HZ + 500, order=6,
             kind="bandpass")
 
-    def _device_inputs(self):
-        """(raw bytes on the decoder's device, n), or (None, n) when the
-        capture is not held there: a source already on the device serves its
-        bytes; on a card a file source is copied over when it fits (the cap
-        of `io.sources.resident_copy`)."""
-        src = self.src
-        n = int(src.length)
-        if (callable(getattr(src, "read_raw_device", None))
-                and src.device == self.device):
-            return src.read_raw_device(0, n), n
-        if self.device.type == "cuda" and callable(getattr(src, "read_raw", None)):
-            held = resident_copy(src, self.device)
-            if held is not None:
-                return held.read_raw_device(0, n), n
-        return None, n
-
     def _baseband_audio(self) -> tuple[torch.Tensor, int]:
-        """FM audio of the whole capture on the decoder's device: the
-        resident front end over bytes held there, else the blocked stream
-        (`BlockFeeder` -> `DdcFmStream`, the carry crossing blocks)."""
+        """FM audio of the whole capture on the decoder's device through
+        `DdcFmStream`: one block where the bytes are on the device (on a
+        card a file source is copied there when `io.sources.resident_copy`
+        lets it), else block by block."""
+        src = self.src
+        if (device_bytes(src, self.device) is None and self.device.type == "cuda"
+                and callable(getattr(src, "read_raw", None))):
+            src = resident_copy(src, self.device) or src
+        whole = device_bytes(src, self.device) is not None
         fe = self._frontend()
-        raw, n = self._device_inputs()
-        if raw is not None:
-            return fe.resident_frontend(raw, n), fe.out_rate
         stream = DdcFmStream(fe, self.device)
-        blocks = BlockFeeder(self.src, K.PROC_CHUNKSIZE, self.device)
-        return torch.cat([stream.step(x, s) for s, _, x in blocks]), fe.out_rate
+        feed = BlockFeeder(src, K.PROC_CHUNKSIZE, self.device,
+                           blocks=[(0, src.length)] if whole else None)
+        outs = [stream.step(x, s) for s, _, x in feed]
+        return (outs[0] if len(outs) == 1 else torch.cat(outs)), fe.out_rate
 
     # ------------------------------------------------------------- bit layer
     def _binary_filter(self, sig: torch.Tensor) -> torch.Tensor:

@@ -100,8 +100,9 @@ class DdcFm:
     def resident_frontend(self, raw: torch.Tensor, n: int) -> torch.Tensor:
         """Whole-capture front end over `n` samples of raw bytes that already
         sit on the device: the capture as one block of `DdcFmStream`, so one
-        K1 call over all of it (its sample offsets are 64-bit). The outputs
-        are those of the blocked stream, bit for bit."""
+        K1 call over all of it (its sample offsets are 64-bit). On a card
+        the outputs are those of the blocked stream, bit for bit (on the
+        CPU a block's last outputs may differ in their last bits)."""
         return DdcFmStream(self, raw.device).step(raw[: 2 * n], 0)
 
     # ------------------------------------------------ the functional block API

@@ -11,6 +11,7 @@ import numpy as np
 
 from .. import constants as K
 from ..constants import PROC_CHUNKSIZE
+from ..io.sources import device_bytes
 from ..ops.pll import PskParams
 from .doppler import DopplerTracker
 from .psk_sync import PskSyncDetector, _SyncConfig
@@ -22,14 +23,6 @@ def _needle_2mhz() -> np.ndarray:
     """+-128-scaled sync at the 1200 bps bit duration (ref decode_funcube.py:175-177)."""
     pm = np.where(_SYNC == 1, 127.0, -128.0)
     return np.repeat(pm, int(2048000 / 1200))
-
-
-def _waterfall_bytes(sigsrc):
-    """The raw bytes the Doppler waterfall reads: a source held on a device
-    serves its (windowed) bytes there, a file source its whole memmap."""
-    if callable(getattr(sigsrc, "read_raw_device", None)):
-        return sigsrc.read_raw_device(0, sigsrc.length)
-    return sigsrc.memmap
 
 
 class FuncubeDecoder(PskSyncDetector):
@@ -56,7 +49,11 @@ class FuncubeDecoder(PskSyncDetector):
         freq_fn = None
         if corrfreq:
             self._init_device(device)
-            tracker = DopplerTracker(_waterfall_bytes(sigsrc), sigsrc.sampFreq,
+            # the waterfall reads a device source's (windowed) bytes where
+            # they lie, a file source's whole memmap
+            held = device_bytes(sigsrc)
+            tracker = DopplerTracker(sigsrc.memmap if held is None else held,
+                                     sigsrc.sampFreq,
                                      int(center_frequency), int(signal_freq),
                                      device=self.device)
             base_offset = float(offset)

@@ -26,6 +26,7 @@ import torch
 
 from .. import constants as K
 from ..io.feeder import BlockFeeder
+from ..io.sources import device_bytes
 from ..ops import am as am_ops
 from ..ops import correlate as corr_ops
 from ..ops import design, fir, fm as fm_ops, iir, peaks, resample as rs
@@ -49,8 +50,8 @@ class NoaaDecoder(TimedDecoder):
     `stage_seconds` as `TimedDecoder` gives them.
 
     `profiler` (`utils.profiling.Profiler`) records what the JAX decoder's
-    does: "fm_frontend" with the capture's length on the resident and mesh
-    paths and e - s for each block of the blocked path, and
+    does: "fm_frontend" with e - s for each block (the capture's length
+    where the bytes on the device make it one block, and on the mesh), and
     "sync_correlate" with 2 n around the crude-sync correlation of n audio
     samples. Where the JAX decoder fuses front end and sync search into one
     "frontend+sync" stage (its resident crude-sync path) the port runs them
@@ -116,19 +117,17 @@ class NoaaDecoder(TimedDecoder):
                 audio, _ = ShardedDdcFm(fe, self.mesh).process(self.src, blk)
             return torch.from_numpy(audio).to(self.device), out_rate
 
-        if (self.mesh is None and not strict and j2 == 1
-                and callable(getattr(self.src, "read_raw_device", None))
-                and self.src.device == self.device):
-            n = self.src.length
-            with self._stage("fm_frontend"), self.profiler.stage("fm_frontend", n):
-                audio = fe.resident_frontend(self.src.read_raw_device(0, n), n)
-            return audio, out_rate
-
+        # bytes on the device, no block-wise resample: one block, one K1
+        # launch (on a card the block plan's outputs, bit for bit)
+        whole = (not strict and j2 == 1
+                 and device_bytes(self.src, self.device) is not None)
+        feed = BlockFeeder(self.src, K.PROC_CHUNKSIZE, self.device,
+                           blocks=[(0, self.src.length)] if whole else None)
         stream = DdcFmStream(fe, self.device)
         outs = []
         off2 = 0
         with self._stage("fm_frontend"):
-            for s, e, x in BlockFeeder(self.src, K.PROC_CHUNKSIZE, self.device):
+            for s, e, x in feed:
                 with self.profiler.stage("fm_frontend", e - s):
                     y = stream.step(x, s)
                 if strict:
@@ -139,7 +138,7 @@ class NoaaDecoder(TimedDecoder):
                     y = rs.decimate(y, off2, j2, rs.decim_count(n_pre, off2, j2))
                     off2 = (j2 - (n_pre - off2) % j2) % j2
                 outs.append(y)
-        return torch.cat(outs), out_rate
+        return (outs[0] if len(outs) == 1 else torch.cat(outs)), out_rate
 
     def get_audio(self):
         """Audio at NOAA_AUDSAMPRATE (ref decode_noaa.py:85-96), on the
@@ -372,9 +371,8 @@ class NoaaDecoder(TimedDecoder):
         """(len(starts), n_win) complex64 IQ windows on the device: gathered
         from the capture bytes where they already lie on the device, else
         read on the host and copied over."""
-        if (callable(getattr(self.src, "read_raw_device", None))
-                and self.src.device == self.device):
-            raw = self.src.read_raw_device(0, self.src.length)
+        raw = device_bytes(self.src, self.device)
+        if raw is not None:
             idx = torch.as_tensor(np.asarray(starts, dtype=np.int64),
                                   device=self.device)
             return unpack.iq_u8_to_complex(raw.unfold(0, 2 * n_win, 2)[idx])

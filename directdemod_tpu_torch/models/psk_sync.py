@@ -18,10 +18,10 @@ package, in two passes:
   in float64. The syncs stay on the device until the decode ends.
 
 The NCO phase restarts at every chunk and the low-pass carries state across
-chunks: both reference quirks are kept. `get_syncs` keeps the JAX
-package's two dispatch shapes: the whole capture at once (up to
-`_CAPTURE_SEG_MAX` samples, default block size, no Doppler track) and the
-block loop; both feed pass 2 block by block. The A indices of the valid
+chunks: both reference quirks are kept. Where the JAX package has two
+dispatch shapes, `get_syncs` has two block plans, one loop: the whole
+capture as one block (up to `_CAPTURE_SEG_MAX` samples, default block size,
+no Doppler track, no mesh), or one block a chunk. The A indices of the valid
 symbols come to the host in one copy per scan (8 B a symbol), their phases
 and needle choices stay on the device; the JAX package's sparse
 event/span gathers, its event cap and its `_CoverageError` fallback existed
@@ -559,46 +559,19 @@ class PskSyncDetector(TimedDecoder):
         # the reference's state quirk: the real unit-step zi as complex, so
         # the imaginary row starts from zero
         lp_state = lp.initial_state_step(torch.float32, dev)
-        parallel = self.n_segments > 1
         omega = (float(np.float32(-2 * np.pi * self.offset / fs))
                  if self.offset != 0.0 else 0.0)
-        plan = plan_blocks(self.src.length, self.block_size)
+        # two block plans, one loop (the module's docstring)
+        n = self.src.length
+        whole = (self.mesh is None and self.freq_fn is None
+                 and self.block_size == PROC_CHUNKSIZE and n <= _CAPTURE_SEG_MAX)
+        plan = [(0, n)] if whole else plan_blocks(n, self.block_size)
         anch_cache: dict = {}
         pass2 = _Pass2(self)
-
-        if (self.mesh is None and self.freq_fn is None
-                and self.block_size == PROC_CHUNKSIZE
-                and self.src.length <= _CAPTURE_SEG_MAX):
-            # whole-capture path: unpack, per-chunk NCO, continuous
-            # low-pass, then one scan (sequential or capture-level
-            # segmented) and pass 2 over it as one block
-            with self._stage("frontend"):
-                _, _, x = next(iter(BlockFeeder(self.src, self.src.length, dev)))
-                if x.dtype == torch.uint8:
-                    x = unpack.iq_u8_to_complex(x)
-                if omega != 0.0:
-                    x = torch.cat([nco.mix(x[s:e], omega,
-                                           self._anchors(anch_cache, e - s))
-                                   for (s, e) in plan])
-                x_f, _ = lp.apply(x, lp_state)
-                del x
-            with self._stage("symbol_scan"):
-                if parallel:
-                    syms = self._scan_seg(x_f, 0)
-                    self._count("symbol_scan.symbols", syms.count)
-                else:
-                    _, syms = self._scan_seq(
-                        x_f, pll.initial_state(p, len(cfg.sym_sync), 1, dev))
-                    self._count_scan(syms, int(x_f.shape[0]))
-            with self._stage("pass2"):
-                pass2.add_block(x_f, 0, syms, 0, final=True)
-                self._syncs = self._finalize(pass2.syncs())
-            return self._syncs
-
         scan_state = pll.initial_state(p, len(cfg.sym_sync), 1, dev)
         filt_prefix = torch.zeros(0, dtype=torch.complex64, device=dev)
         warm = int(self.warmup_symbols * p.symbol_period)
-        feed = BlockFeeder(self.src, self.block_size, dev)
+        feed = BlockFeeder(self.src, device=dev, blocks=plan)
         for ci, (s, e, x) in enumerate(feed):
             with self._stage("frontend"):
                 if x.dtype == torch.uint8:
@@ -609,11 +582,14 @@ class PskSyncDetector(TimedDecoder):
                     x = nco.mix_array_freq(x, freqs, fs, start=0)
                 elif omega != 0.0:
                     # chunk-local NCO phase (reference quirk: no chunker)
-                    x = nco.mix(x, omega, self._anchors(anch_cache, e - s))
+                    parts = [nco.mix(x[a:b], omega,
+                                     self._anchors(anch_cache, b - a))
+                             for a, b in plan_blocks(e - s, self.block_size)]
+                    x = parts[0] if len(parts) == 1 else torch.cat(parts)
                 x_f, lp_state = lp.apply(x, lp_state)
                 del x
             with self._stage("symbol_scan"):
-                if parallel:
+                if self.n_segments > 1:
                     prefix = int(filt_prefix.shape[0])
                     xw = torch.cat([filt_prefix, x_f]) if prefix else x_f
                     syms = self._scan_seg(xw, prefix)

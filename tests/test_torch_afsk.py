@@ -32,6 +32,7 @@ from directdemod_tpu.ops import iir as jiir
 from directdemod_tpu.ops import peaks as jpeaks
 from directdemod_tpu_torch import constants
 from directdemod_tpu_torch.io.sources import ArraySource, DeviceRawSource
+from directdemod_tpu_torch.models import afsk1200 as afsk_mod
 from directdemod_tpu_torch.models.afsk1200 import Afsk1200Decoder, _window_means
 from directdemod_tpu_torch.ops import crc, ddc, fir, peaks
 from tests.test_afsk1200 import afsk_modulate, make_ax25_frame, stuff_bits
@@ -268,6 +269,13 @@ def test_designed_constants_equal_jax():
                           np.asarray(jbp.initial_state_step(jnp.float64)))
 
 
+def _hide_device_bytes(monkeypatch):
+    """The decoder's test of where the bytes lie answers "not on the
+    device": it takes the block plan over the same source (the feed still
+    slices the blocks out of the held bytes)."""
+    monkeypatch.setattr(afsk_mod, "device_bytes", lambda src, device=None: None)
+
+
 def test_fm_audio_matches_jax_resident_complex(aprs_capture, monkeypatch):
     """The port's FM front end (block 0 shortened so K1's plain version
     runs over the rest) against the JAX complex front end discriminated over
@@ -280,10 +288,10 @@ def test_fm_audio_matches_jax_resident_complex(aprs_capture, monkeypatch):
     c = np.asarray(jfe.resident_complex(jnp.asarray(raw), n)).astype(np.complex64)
     ref = np.angle(c[1:] * np.conj(c[:-1]) * np.complex64(jfe.rot))
     src = DeviceRawSource(torch.from_numpy(raw), FS)
-    resident = Afsk1200Decoder(src, OFF, device="cpu")
-    blocked = Afsk1200Decoder(src, OFF, device="cpu")
-    blocked._device_inputs = lambda: (None, n)
-    for dec in (resident, blocked):
+    for resident in (True, False):
+        dec = Afsk1200Decoder(src, OFF, device="cpu")
+        if not resident:
+            _hide_device_bytes(monkeypatch)
         got, rate = dec._baseband_audio()
         assert rate == jfe.out_rate
         got = got.numpy()
@@ -329,9 +337,10 @@ def test_resident_path_matches_blocked_path(monkeypatch):
     monkeypatch.setattr(constants, "PROC_CHUNKSIZE", 300_000)
     src = DeviceRawSource(torch.from_numpy(raw), FS)
     d1 = Afsk1200Decoder(src, OFF, device="cpu")
+    f1 = d1.get_frames()
+    _hide_device_bytes(monkeypatch)
     d2 = Afsk1200Decoder(src, OFF, device="cpu")
-    d2._device_inputs = lambda: (None, int(src.length))
-    f1, f2 = d1.get_frames(), d2.get_frames()
+    f2 = d2.get_frames()
     assert [f.info for f in f1] == infos
     assert _key(f1) == _key(f2) and d1.useful == d2.useful == 1
 

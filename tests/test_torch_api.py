@@ -141,6 +141,32 @@ def test_supports_raw_matches_jax(tmp_path, iq_bytes):
     assert got == [junpack.supports_raw(s) for _, s in cases] == [True, True, False]
 
 
+@pytest.mark.parametrize("kind,device,held", [
+    ("wav", None, False), ("dat", None, False), ("dat", "cpu", False),
+    ("array", None, False), ("device", None, True), ("device", "cpu", True),
+    ("device", "cuda:0", False)])
+def test_device_bytes_says_where_the_bytes_lie(tmp_path, iq_bytes, kind,
+                                               device, held):
+    """`sources.device_bytes`: a DeviceRawSource's windowed bytes, where
+    they lie, when no device is asked for or the one asked for is theirs;
+    None for the host sources and for another device."""
+    w, d = str(tmp_path / "a.wav"), str(tmp_path / "a.dat")
+    _write_iq_wav(w, iq_bytes)
+    iq_bytes.tofile(d)
+    src = {"wav": lambda: sources.IQWav(w),
+           "dat": lambda: sources.IQDat(d),
+           "array": lambda: sources.ArraySource(np.zeros(5000, np.complex64), FS),
+           "device": lambda: sources.DeviceRawSource.from_file(d, FS, device="cpu"),
+           }[kind]()
+    src.limit(100, 300)
+    got = sources.device_bytes(src, device)
+    if not held:
+        assert got is None
+        return
+    assert got.dtype == torch.uint8 and got.device == src.device
+    assert np.array_equal(got.numpy(), iq_bytes[200:600])
+
+
 # ----------------------------------------------------------------- sinks
 
 @pytest.mark.parametrize("kind", ["float32", "float64", "int16", "int32", "stereo", "tensor"])

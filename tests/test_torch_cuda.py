@@ -587,6 +587,30 @@ def test_noaa_decode_on_the_card_matches_cpu(dev, monkeypatch):
         assert np.max(np.abs(np.subtract(acc[i], r_acc[i]))) <= 1
 
 
+def test_noaa_one_block_equals_the_block_plan_on_the_card(dev, monkeypatch,
+                                                          tmp_path):
+    """A 24-line pass held on the card goes through K1 as one block; the
+    same bytes from a .dat file go block by block (PROC_CHUNKSIZE 4 M, one
+    launch a block). K1 computes every output alike, so the audio is equal
+    bit for bit and so are the crude syncs."""
+    monkeypatch.setattr(constants, "PROC_CHUNKSIZE", 4_000_000)
+    raw, _ = synth_pass_bytes(24, dev, seed=3)
+    path = tmp_path / "pass.dat"
+    raw.cpu().numpy().tofile(path)
+    out = {}
+    for plan, src in (("one", sources.DeviceRawSource(raw, FS)),
+                      ("blocks", sources.IQDat(str(path), FS))):
+        before = ddc.LAUNCHES
+        dec = NoaaDecoder(src, 30000, device=dev)
+        syncs = dec.get_crude_sync()
+        out[plan] = (dec._audio[0], syncs, ddc.LAUNCHES - before)
+    n = raw.shape[0] // 2
+    assert out["one"][2] == 1 and out["blocks"][2] == -(-n // 4_000_000)
+    assert torch.equal(out["one"][0], out["blocks"][0])
+    for a, b in zip(out["one"][1], out["blocks"][1]):
+        assert np.array_equal(a, b) and len(a) > 0
+
+
 def _psk(kind):
     cls = FuncubeDecoder if kind == "bpsk" else MeteorM2Decoder
     det = cls(sources.ArraySource(np.zeros(16, np.complex64), FS), 0, device="cpu")

@@ -2,7 +2,8 @@
 (`benchmarks/reference/qpsk.py`) on a seeded 3-s capture of
 `benchmarks/synth/qpsk.py`, on the CPU: through the block loop (blocks of
 1,000,000 samples, the scan state carried across them, as the 2-minute
-cell runs on the card) and through the whole-capture path. The scan of one
+cell runs on the card) and as one block (the plan of captures of at most
+`psk_sync._CAPTURE_SEG_MAX` samples). The scan of one
 block, from the port's own state at its start, against the reference's;
 every decoded sync against its planted frame's reference sync; and the
 decoder's counters of the scan's step budget and of pass 2's windows."""

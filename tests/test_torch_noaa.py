@@ -19,7 +19,7 @@ from directdemod_tpu.io.sources import ArraySource as JArraySource
 from directdemod_tpu.models import apt as japt
 from directdemod_tpu.models.falsecolor import false_color as jfalse_color
 from directdemod_tpu.models.noaa import NoaaDecoder as JNoaaDecoder
-from directdemod_tpu_torch.io.sources import ArraySource, DeviceRawSource
+from directdemod_tpu_torch.io.sources import ArraySource, DeviceRawSource, IQDat
 from directdemod_tpu_torch.models import apt, frontend
 from directdemod_tpu_torch.models import noaa as noaa_mod
 from directdemod_tpu_torch.models.noaa import NoaaDecoder
@@ -138,6 +138,45 @@ def test_raw_source_decode_through_k1(capture, pair, monkeypatch):
                            jdec.get_accurate_sync(use_norm_correlate=True))
     assert set(dec.stage_seconds) == {"fm_frontend", "crude_sync", "image",
                                       "accurate_sync"}
+
+
+def test_one_block_plan_matches_the_block_plan(capture, tmp_path, monkeypatch):
+    """The capture's bytes held in a DeviceRawSource go through the front
+    end as one block; the same bytes from a .dat file go block by block
+    (PROC_CHUNKSIZE cut to 3 M samples: 5 blocks). The crude syncs are
+    equal and the profiler records one "fm_frontend" call of the capture's
+    length against one a block. The audio is equal bit for bit but in the
+    last 16 outputs of a block of the block plan: there the CPU's
+    elementwise complex product and angle run their scalar tail instead of
+    the vector loop and may round another way (a few ulps; on the card K1
+    computes every output alike, and its test holds all of them equal)."""
+    iq, _ = capture
+    raw = _raw_bytes(iq)
+    path = tmp_path / "apt.dat"
+    raw.tofile(path)
+    blk = 3_000_000
+    monkeypatch.setattr(noaa_mod.K, "PROC_CHUNKSIZE", blk)
+    one = NoaaDecoder(DeviceRawSource(torch.from_numpy(raw), FS), 30000,
+                      device="cpu")
+    blocked = NoaaDecoder(IQDat(str(path), FS), 30000, device="cpu")
+    sa, sb = one.get_crude_sync()
+    ba, bb = blocked.get_crude_sync()
+    assert np.array_equal(sa, ba) and np.array_equal(sb, bb) and len(sa) > 0
+    n = len(iq)
+    for dec, calls in ((one, 1), (blocked, -(-n // blk))):
+        st = dec.profiler.stages["fm_frontend"]
+        assert (st.calls, st.samples) == (calls, n)
+    (a1, r1), (a2, r2) = one._audio, blocked._audio
+    assert r1 == r2 and a1.shape == a2.shape
+    fe = one._frontend()
+    ends = np.cumsum([fe.block_out_len(s, min(s + blk, n) - s)
+                      for s in range(0, n, blk)]) - 1     # block 0 drops one
+    assert ends[-1] == a1.shape[0]
+    tails = np.zeros(a1.shape[0], bool)
+    for e in ends:
+        tails[e - 16:e] = True
+    d = (a1 - a2).abs().numpy()
+    assert not d[~tails].any() and d.max() < 1e-6
 
 
 def test_noise_only_capture_is_not_useful():
