@@ -882,6 +882,7 @@ def k3_compare(pll, kind: str, x: np.ndarray, dev, segments: int = 1) -> dict:
         return pll.symbol_scan_segments(p, xx, s0, s1, segments, 2000)[0]
 
     got = run(xd)
+    stats = {k: sum(v) for k, v in pll.LAST_STATS.items()}
     t0 = time.perf_counter()
     want = run(xc)
     plain_ms = (time.perf_counter() - t0) * 1e3
@@ -901,21 +902,24 @@ def k3_compare(pll, kind: str, x: np.ndarray, dev, segments: int = 1) -> dict:
         # the longest stage's share of P's wall, times the time, is the
         # longest chain's time alone
         cyc = pll.stage_cycles(p, xd, pll.initial_state(p, len(s0), 1, dev), s0, s1)
-        stages = {k: v / got.count for k, v in zip(("P", "C", "M", "wall"), cyc)}
+        stages = {k: v / got.count for k, v in zip(("P", "C", "M", "wall", "P_reads"), cyc)}
         stages["chain_bound_ms"] = ms * max(cyc[:3]) / cyc[3]
         print(f"phase 10 ({kind}): stage clocks a symbol (measurement build) P "
-              f"{stages['P']:.0f}, C {stages['C']:.0f}, M {stages['M']:.0f}, P's wall "
-              f"{stages['wall']:.0f}: the longest chain alone "
-              f"{stages['chain_bound_ms']:.4f} ms", flush=True)
+              f"{stages['P']:.0f} (its sample reads {stages['P_reads']:.0f}, the rest "
+              f"{stages['P'] - stages['P_reads']:.0f}), C {stages['C']:.0f}, M "
+              f"{stages['M']:.0f}, P's wall {stages['wall']:.0f}: the longest chain "
+              f"alone {stages['chain_bound_ms']:.4f} ms", flush=True)
     print(f"phase 10 ({kind}, {segments} segment(s)): K3 over {len(x)} samples, "
-          f"{got.count} symbols ({int(got.minsync.sum())} minsync): a_idx, "
+          f"{got.count} symbols ({int(got.minsync.sum())} minsync; window misses "
+          f"{stats['window_misses']} of {2 * got.count} reads, sincos fallbacks "
+          f"{stats['sincos_fallbacks']}): a_idx, "
           f"minsync, chosen equal to the plain version: {same}; largest phase "
           f"difference {err:.3e} rad; K3 {ms:.4f} ms ({ms * 1e6 / got.count:.1f} ns "
           f"a symbol), plain {plain_ms:.1f} ms, bound {bnd['bound_ms']:.5f} ms "
           f"({bnd['bound_by']}) on {card_line()}", flush=True)
     check(same and got.count > 0, f"K3 {kind} equals its plain version")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "symbols": got.count, **bnd, **stages}
+            "symbols": got.count, **stats, **bnd, **stages}
 
 
 def psk_decode(cls, raw: torch.Tensor, offset: float, dev, label: str, **kw):
@@ -2365,7 +2369,8 @@ def main() -> int:
          **{f: k3["bpsk_1"][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
                                           "chain_bound_ms")},
          "library_ms": None,
-         **{f"{kind}_stage_cycles": {k: k3[f"{kind}_1"][k] for k in ("P", "C", "M", "wall")}
+         **{f"{kind}_stage_cycles": {k: k3[f"{kind}_1"][k]
+                                     for k in ("P", "C", "M", "wall", "P_reads")}
             for kind in ("bpsk", "qpsk")},
          "qpsk_1_chain_bound_ms": k3["qpsk_1"]["chain_bound_ms"],
          **{f"{key}_{f}": v[f] for key, v in k3.items()

@@ -477,10 +477,11 @@ class PskSyncDetector(TimedDecoder):
     counting `psk.pass2.windows`, stale snapshots included) and
     `psk.pass2.correlate` (the batch's frame correlations on the device,
     counting `psk.pass2.correlations`, and the batch in
-    `psk.pass2.batches`). The symbol scan counts `psk.symbol_scan.symbols`
-    and, for a sequential scan that the step budget stopped with samples
-    left, `psk.symbol_scan.budget_stops` and `psk.symbol_scan.samples_left`
-    (`_count_scan`)."""
+    `psk.pass2.batches`). The symbol scan counts `psk.symbol_scan.symbols`;
+    for a sequential scan that the step budget stopped with samples left,
+    `psk.symbol_scan.budget_stops` and `psk.symbol_scan.samples_left`; and
+    for a sequential scan on the card, `psk.symbol_scan.window_misses` and
+    `psk.symbol_scan.sincos_fallbacks` (`_count_scan`)."""
 
     layer = "psk"
 
@@ -533,11 +534,17 @@ class PskSyncDetector(TimedDecoder):
                                self.cfg.sym_sync_alt)
 
     def _count_scan(self, syms: pll.Symbols, n: int) -> None:
-        """Count a sequential scan of an n-sample block: its symbols and,
-        where the step budget stopped it with samples left (the scan's own
-        flag, `pll.LAST_TRUNCATED`), the stop and the samples after its
-        last A index."""
+        """Count a sequential scan of an n-sample block: its symbols; where
+        the step budget stopped it with samples left (the scan's own flag,
+        `pll.LAST_TRUNCATED`), the stop and the samples after its last A
+        index; and, where K3 ran it (`pll.LAST_STATS`), the samples its
+        stage P read from device memory and the steps where its stage C ran
+        the full sincos."""
         self._count("symbol_scan.symbols", syms.count)
+        if pll.LAST_STATS is not None:
+            self._count("symbol_scan.window_misses", sum(pll.LAST_STATS["window_misses"]))
+            self._count("symbol_scan.sincos_fallbacks",
+                        sum(pll.LAST_STATS["sincos_fallbacks"]))
         if pll.LAST_TRUNCATED:
             self._count("symbol_scan.budget_stops", 1)
             self._count("symbol_scan.samples_left",

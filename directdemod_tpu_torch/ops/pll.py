@@ -15,8 +15,9 @@ the recurrence.
 The step is three recurrences that feed one way: P (timing and AGC), C
 (the Costas loop, which needs only P's gained A sample) and M (minsync,
 which needs only the sign bits of C's rotated sample). K3 runs them on
-three warps that hand symbols over in batches; the plain version runs them
-as three passes over a segment (`_stage_p`, `_stage_c`, `_stage_m`), each
+three warps that hand symbols over in batches, and a fourth that stages
+P's samples in shared memory ahead of it; the plain version runs them as
+three passes over a segment (`_stage_p`, `_stage_c`, `_stage_m`), each
 updating its own fields of the state rows. No float operation moves.
 
 `symbol_scan` and `symbol_scan_segments` launch K3, the CUDA kernel
@@ -60,6 +61,11 @@ LAUNCHES = 0
 # Whether the last `symbol_scan` stopped at the step budget with samples
 # left (K3's flag, or the plain version's).
 LAST_TRUNCATED = False
+# K3's counts of its last launch, one entry a segment: "window_misses", the
+# samples stage P read from device memory rather than from its window in
+# shared memory, and "sincos_fallbacks", the steps where stage C ran the
+# full double sincos. None after a plain scan, which has neither.
+LAST_STATS: dict | None = None
 
 
 @dataclass(frozen=True)
@@ -444,7 +450,7 @@ def _kernel_lib(extra: tuple = ()):
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _libs[extra] = lib
     return lib
@@ -459,16 +465,54 @@ def stage_cycles(p: PskParams, x: torch.Tensor, state: dict, sync, sync1
                  ) -> list[int]:
     """One sequential scan of the CUDA tensor x through K3's measurement
     build: the SM clocks that warps P, C and M spent on their stages' work
-    (waits excluded), and P's wall from its first batch to its end. A
-    stage's clocks over the symbols is its chain a symbol, alone."""
+    (waits excluded), P's wall from its first batch to its end, and P's
+    clocks from the start of each step until both its samples were in
+    registers (the sample reads). A stage's clocks over the symbols is its
+    chain a symbol, alone."""
     lib = _kernel_lib(STAGE_CLOCK_FLAGS)
     _scan(p, x, state, sync, sync1, [0], int(x.shape[0]), lib=lib)
     torch.cuda.synchronize(x.device)
-    out = (ctypes.c_ulonglong * 4)()
+    out = (ctypes.c_ulonglong * 5)()
     err = lib.symbol_scan_stage_cycles(out)
     if err != 0:
         raise RuntimeError(f"symbol_scan_stage_cycles failed: cudaError_t {err}")
     return list(out)
+
+
+def div_sqrt_probe(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Stage P's division and square root without their range checks, and
+    the compiler's, over the float32 CUDA tensors a and b, through K3's
+    measurement build: (div_nr(a, b), a / b, sqrt_nr(b), sqrtf(b))."""
+    if (a.dtype != torch.float32 or b.dtype != torch.float32 or a.shape != b.shape
+            or a.device.type != "cuda" or b.device != a.device):
+        raise ValueError("a and b must be float32 CUDA tensors of one shape")
+    lib = _kernel_lib(STAGE_CLOCK_FLAGS)
+    a, b = a.contiguous().reshape(-1), b.contiguous().reshape(-1)
+    out = torch.empty(a.shape[0], 4, dtype=torch.float32, device=a.device)
+    err = lib.symbol_scan_div_sqrt(ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(b.data_ptr()),
+                                   ctypes.c_longlong(a.shape[0]), ctypes.c_void_p(out.data_ptr()),
+                                   ctypes.c_void_p(torch.cuda.current_stream(a.device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"symbol_scan_div_sqrt failed: cudaError_t {err}")
+    return tuple(out.unbind(1))
+
+
+def cos_sin_probe(phases: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Stage C's cos and sin of the float32 CUDA tensor `phases`, through
+    K3's measurement build: (cos, sin, the double sincos's cos and sin
+    rounded to float32, whether C ran the full sincos) for each phase."""
+    if phases.dtype != torch.float32 or phases.device.type != "cuda":
+        raise ValueError("phases must be a float32 CUDA tensor")
+    lib = _kernel_lib(STAGE_CLOCK_FLAGS)
+    x = phases.contiguous().reshape(-1)
+    out = torch.empty(x.shape[0], 4, dtype=torch.float32, device=x.device)
+    fb = torch.empty(x.shape[0], dtype=torch.uint8, device=x.device)
+    err = lib.symbol_scan_cos_sin(ctypes.c_void_p(x.data_ptr()), ctypes.c_longlong(x.shape[0]),
+                                  ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(fb.data_ptr()),
+                                  ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"symbol_scan_cos_sin failed: cudaError_t {err}")
+    return out[:, 0], out[:, 1], out[:, 2], out[:, 3], fb.bool()
 
 
 def _scan(p: PskParams, x: torch.Tensor, state: dict, sync, sync1,
@@ -478,10 +522,11 @@ def _scan(p: PskParams, x: torch.Tensor, state: dict, sync, sync1,
     seg_len)` steps: K3 on a CUDA device, the plain version on the CPU.
     Returns (new state, the valid symbols of all segments in segment order
     with indices in x's coordinates, the count of each segment, whether the
-    step budget stopped each segment with samples left). `lib`: another
-    build of K3 (`stage_cycles`)."""
-    global LAUNCHES
+    step budget stopped each segment with samples left) and leaves K3's
+    counts in `LAST_STATS`. `lib`: another build of K3 (`stage_cycles`)."""
+    global LAUNCHES, LAST_STATS
     if x.device.type == "cpu":
+        LAST_STATS = None
         return _scan_plain(p, x, state, sync, sync1, starts, seg_len)
     if x.device.type != "cuda":
         raise ValueError(f"symbol_scan runs on cuda or cpu, not {x.device}")
@@ -504,21 +549,26 @@ def _scan(p: PskParams, x: torch.Tensor, state: dict, sync, sync1,
     chosen = torch.empty(n_seg, cap, dtype=torch.int8, device=dev)
     counts = torch.empty(n_seg, dtype=torch.int64, device=dev)
     trunc = torch.empty(n_seg, dtype=torch.uint8, device=dev)
+    stats = torch.empty(n_seg, 2, dtype=torch.int64, device=dev)
     err = lib.symbol_scan_launch(
         xs.data_ptr(), int(x.shape[0]), starts_t.data_ptr(), int(seg_len),
         n_seg, consts.data_ptr(), lut.data_ptr(), words.data_ptr(), slen,
         int(p.qpsk), int(0.1 * p.sym_rate), float(p.minsync_thresh),
         st_f.data_ptr(), st_i.data_ptr(), cap, a_idx.data_ptr(),
         phase.data_ptr(), minsync.data_ptr(), chosen.data_ptr(),
-        counts.data_ptr(), trunc.data_ptr(), dev.index,
+        counts.data_ptr(), trunc.data_ptr(), stats.data_ptr(), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"symbol_scan kernel launch failed: cudaError_t {err}")
     LAUNCHES += 1
     keep = torch.arange(cap, device=dev)[None, :] < counts[:, None]
     syms = Symbols(a_idx[keep], phase[keep], minsync[keep], chosen[keep])
-    return ({"f": st_f, "i": st_i}, syms, counts.tolist(),
-            [bool(t) for t in trunc.tolist()])
+    # one copy to the host: counts, truncation flags, misses, fallbacks
+    host = torch.cat([counts, trunc.long(), stats.t().reshape(-1)]).tolist()
+    LAST_STATS = {"window_misses": host[2 * n_seg:3 * n_seg],
+                  "sincos_fallbacks": host[3 * n_seg:]}
+    return ({"f": st_f, "i": st_i}, syms, host[:n_seg],
+            [bool(t) for t in host[n_seg:2 * n_seg]])
 
 
 def _warn_truncated(trunc: list, cap: int) -> None:

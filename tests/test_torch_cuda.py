@@ -645,6 +645,8 @@ def test_scan_kernel_matches_plain(dev, kind, segments):
     _same_symbols(got, want)
     if kind == "bpsk":
         assert int(want.minsync.sum()) >= 1
+    if segments == 1:                     # the window served every read
+        assert pll.LAST_STATS == {"window_misses": [0], "sincos_fallbacks": [1]}
 
 
 def test_scan_kernel_block_split_carry(dev):
@@ -850,11 +852,97 @@ def test_scan_kernel_state_over_two_blocks(dev, kind):
 
 def test_scan_kernel_stage_clocks(dev):
     """The measurement build gives the same symbols and nonzero clocks for
-    each stage warp."""
+    each stage warp; P's sample reads are part of its work."""
     x = torch.from_numpy(k3_streams(200_000, seed=3)["bpsk"]).to(dev)
     p, s0, s1 = _psk("bpsk")
     cyc = pll.stage_cycles(p, x, pll.initial_state(p, len(s0), 1, dev), s0, s1)
-    assert all(c > 0 for c in cyc) and max(cyc[:2]) <= cyc[3]
+    assert all(c > 0 for c in cyc) and max(cyc[:2]) <= cyc[3] and cyc[4] <= cyc[0]
+
+
+@pytest.mark.parametrize("case", ["backwards", "clamped", "clamped_wide"])
+@pytest.mark.parametrize("kind", ["bpsk", "qpsk"])
+def test_scan_kernel_window_misses_stay_exact(dev, kind, case):
+    """Reads outside stage P's window: a first step whose timing sends the
+    anchor ~20,000 samples back, far past the window's margin behind it
+    (those reads are misses, served from device memory); a block whose
+    anchor lies before its first sample, so its reads clamp to sample 0
+    (served without a read); the same from an anchor below -2^30, which
+    takes the 64-bit indices. Every result equals the plain version's."""
+    x = torch.from_numpy(k3_streams(300_000, seed=6)[kind])
+    p, s0, s1 = _psk(kind)
+    state = pll.initial_state(p, len(s0), 1, "cpu")
+    if case == "backwards":
+        state["i"][0, pll.I_ANCHOR] = 150_000
+        state["f"][0, pll.F_TIMING] = 20_000.0
+    else:
+        state["i"][0, pll.I_ANCHOR] = -50_000 if case == "clamped" else -(2 ** 30) - 12_345
+    got = pll._scan(p, x.to(dev), {k: v.to(dev) for k, v in state.items()},
+                    s0, s1, [0], 300_000)
+    stats = pll.LAST_STATS
+    want = pll._scan(p, x, state, s0, s1, [0], 300_000)
+    _same_scan(got, want)
+    assert want[2][0] > 0
+    if case == "backwards":
+        assert stats["window_misses"][0] > 0
+    else:
+        assert stats["window_misses"] == [0]
+
+
+@pytest.mark.parametrize("scale", [1e21, 1e-21, 0.0])
+def test_scan_kernel_operands_beyond_the_short_forms(dev, scale):
+    """Samples beyond 2^60 or below 2^-60 (or zero, from the middle on)
+    take stage P's division and square root outside the ranges where they
+    equal the compiler's, so each batch runs again with the compiler's
+    operators: the result still equals the plain version's."""
+    x = torch.from_numpy(k3_streams(100_000, seed=7)["qpsk"])
+    if scale:
+        x = x * scale
+    else:
+        x[50_000:] = 0
+    p, s0, s1 = _psk("qpsk")
+    state = pll.initial_state(p, len(s0), 1, "cpu")
+    got = pll._scan(p, x.to(dev), {k: v.to(dev) for k, v in state.items()},
+                    s0, s1, [0], 100_000)
+    want = pll._scan(p, x, state, s0, s1, [0], 100_000)
+    _same_scan(got, want)
+    assert want[2][0] > 0
+
+
+def test_scan_kernel_div_sqrt_probe(dev):
+    """Stage P's division and square root without their range checks
+    (the measurement build's probe) equal the compiler's: the square root
+    over every float32 in [1, 2], the division over 2^22 quotients
+    mi / m (0 <= mi <= m) and 2^22 quotients 180 / mean, operands spread
+    over 2^-60..2^60 on a log scale."""
+    ones = torch.arange(0x3F800000, 0x40000001, dtype=torch.int32).view(torch.float32).to(dev)
+    _, _, got, want = pll.div_sqrt_probe(ones, ones)
+    assert torch.equal(got, want)
+    g = torch.Generator(device=dev).manual_seed(19)
+    n = 2 ** 22
+    m = torch.exp2(torch.rand(n, generator=g, device=dev) * 119.9 - 60.0)
+    mi = m * torch.rand(n, generator=g, device=dev)
+    mi = torch.where(mi >= 2.0 ** -60, mi, torch.zeros_like(mi))
+    for a, b in ((mi, m), (torch.full_like(m, 180.0), m)):
+        got, want, _, _ = pll.div_sqrt_probe(a, b)
+        assert torch.equal(got, want)
+
+
+def test_scan_kernel_cos_sin_probe(dev):
+    """Stage C's cos and sin (the measurement build's probe) over 2^24
+    phases in (-2 pi, 2 pi), the floats within 64 ulps of each k pi / 2
+    among them: equal to the double sincos rounded to float32 everywhere,
+    the full sincos run for at most 1e-4 of them."""
+    n = 2 ** 24
+    grid = torch.linspace(-2 * np.pi, 2 * np.pi, n, dtype=torch.float64).float()
+    near = [np.arange(0, 65, dtype=np.int32).view(np.float32)]   # 0 and subnormals
+    for k in range(1, 5):
+        bits = np.float32(k * np.pi / 2).view(np.int32) + np.arange(-64, 65, dtype=np.int32)
+        near += [bits.view(np.float32), -bits.view(np.float32)]
+    near = torch.from_numpy(np.concatenate(near))
+    x = torch.cat([near, grid[: n - near.shape[0]]]).to(dev)
+    c, s, c_ref, s_ref, fb = pll.cos_sin_probe(x)
+    assert torch.equal(c, c_ref) and torch.equal(s, s_ref)
+    assert int(fb.sum()) <= n * 1e-4
 
 
 # ------------------------------------------------------------------ the mesh
