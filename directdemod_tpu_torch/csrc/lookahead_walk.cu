@@ -50,6 +50,8 @@
 //      the output, in parallel. After a checkpoint meeting, an adopted
 //      event whose position the walk set before the meeting takes the true
 //      walk's position there (its value is the same).
+// The three kernels are named k2_speculative_walks, k2_stitch and k2_gather,
+// names no library kernel holds, so a trace finds them by name alone.
 // The step is the sequential walk's step (written without branches), so
 // events equal the plain version's exactly. Time: L steps of one walker (pass 1, in
 // parallel over 2 * limit / L walkers) plus, a chunk, the stitch's steps
@@ -134,7 +136,7 @@ __device__ __forceinline__ void put(long long* idx, long long* pos, float* val,
 
 // Pass 1: walk t covers chunk t / 2; walk 2c starts from the post-max state
 // (chunk 0: the true initial state), walk 2c + 1 from the post-min state.
-__global__ void __launch_bounds__(WALK_THREADS) speculative_walks(Args g) {
+__global__ void __launch_bounds__(WALK_THREADS) k2_speculative_walks(Args g) {
   const long long t = (long long)blockIdx.x * WALK_THREADS + threadIdx.x;
   if (t >= 2 * g.n_chunks) return;
   const long long c = t >> 1;
@@ -197,7 +199,7 @@ __global__ void __launch_bounds__(WALK_THREADS) speculative_walks(Args g) {
 }
 
 // Pass 2: one thread resolves the chunks in order.
-__global__ void stitch(Args g) {
+__global__ void k2_stitch(Args g) {
   if (threadIdx.x != 0) return;
   Walk w{-CUDART_INF_F, CUDART_INF_F, 0, 0};
   const float delta = g.delta;
@@ -304,7 +306,7 @@ __global__ void stitch(Args g) {
 // Pass 3: block c copies chunk c's adopted events into the output, giving
 // an event whose position was set before a checkpoint meeting the true
 // walk's position.
-__global__ void __launch_bounds__(GATHER_THREADS) gather(Args g) {
+__global__ void __launch_bounds__(GATHER_THREADS) k2_gather(Args g) {
   const long long* r = g.rec + 7 * (long long)blockIdx.x;
   const long long src = r[0], n = r[3], meet = r[4];
   if (src < 0) return;
@@ -351,15 +353,15 @@ extern "C" int lookahead_walk_launch(const void* y, const void* fmax, const void
   cudaStream_t s = (cudaStream_t)stream;
   if (n_chunks > 0) {
     const long long blocks = (2 * n_chunks + WALK_THREADS - 1) / WALK_THREADS;
-    speculative_walks<<<(unsigned)blocks, WALK_THREADS, 0, s>>>(g);
+    k2_speculative_walks<<<(unsigned)blocks, WALK_THREADS, 0, s>>>(g);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  stitch<<<1, 32, 0, s>>>(g);
+  k2_stitch<<<1, 32, 0, s>>>(g);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (n_chunks > 0) {
-    gather<<<(unsigned)n_chunks, GATHER_THREADS, 0, s>>>(g);
+    k2_gather<<<(unsigned)n_chunks, GATHER_THREADS, 0, s>>>(g);
     err = cudaGetLastError();
   }
   return (int)err;

@@ -143,12 +143,15 @@ class Afsk1200Decoder(TimedDecoder):
     def _bit_boundaries(self, edges: torch.Tensor) -> np.ndarray:
         """Lookahead peaks of the edge strength (ref
         decode_afsk1200.py:161-178); returns the positive-peak sample
-        positions (int64, host)."""
+        positions (int64, host). Counts the samples K2 walks and its
+        fires."""
         lookahead = int(self.bw // K.AFSK_BAUDRATE * 0.65)
         n = int(edges.shape[0])
         if n <= lookahead:
             return np.empty(0, np.int64)
         events = peaks.lookahead_events(edges, lookahead)
+        self._count("bit_sync.samples", n - lookahead)
+        self._count("bit_sync.events", int(events[0].shape[0]))
         (pk, _), _ = peaks.unpack_lookahead_events(events, lookahead, n)
         return pk
 
@@ -248,29 +251,48 @@ class Afsk1200Decoder(TimedDecoder):
 
     # ------------------------------------------------------------- top level
     def get_frames(self) -> list[Ax25Frame]:
-        """Run the full decode; returns the CRC-valid AX.25 frames."""
+        """Run the full decode; returns the CRC-valid AX.25 frames. One
+        `bit_sync` stage holds the filters and the walk, one `framing`
+        stage the baud levels on the device and the host bit layer."""
         if self._frames is not None:
             return self._frames
-        bf, edges = self._edges()
+        audio, rate = self._audio_stage()
         with self._stage("bit_sync"):
-            pk = self._bit_boundaries(edges)
+            with self._span("bit_sync.filters"):
+                bf, edges = self._filters(audio, rate)
+            del audio
+            with self._span("bit_sync.walk"):
+                pk = self._bit_boundaries(edges)
         with self._stage("framing"):
-            nrzi = self._nrzi_bits(bf, pk) if len(pk) >= 2 else np.empty(0)
-            self._frames = self._frames_from_nrzi(nrzi)
+            with self._span("framing.levels"):
+                nrzi = self._nrzi_bits(bf, pk) if len(pk) >= 2 else np.empty(0)
+            with self._span("framing.frames"):
+                self._frames = self._frames_from_nrzi(nrzi)
         return self._frames
 
     def _edges(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(bf, edge strength) of the whole capture on the decoder's device:
         FM audio -> bandpass -> correlator bank -> edge correlation."""
+        audio, rate = self._audio_stage()
+        with self._stage("bit_sync"), self._span("bit_sync.filters"):
+            return self._filters(audio, rate)
+
+    def _audio_stage(self) -> tuple[torch.Tensor, int]:
+        """The `fm_frontend` stage: the capture's FM audio and its rate."""
         with self._stage("fm_frontend"):
             audio, rate = self._baseband_audio()
         log.info("AFSK: %d samples at %d Hz", audio.shape[0], rate)
-        with self._stage("bit_sync"):
-            bp = self._bandpass(rate)
-            sig, _ = bp.apply(audio, bp.initial_state_step(torch.float32,
-                                                           audio.device))
-            bf = self._binary_filter(sig)
-            return bf, self._edge_strength(bf)
+        return audio, rate
+
+    def _filters(self, audio: torch.Tensor, rate: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+        """bandpass -> correlator bank -> edge correlation of the FM audio:
+        (bf, edge strength)."""
+        bp = self._bandpass(rate)
+        sig, _ = bp.apply(audio, bp.initial_state_step(torch.float32,
+                                                       audio.device))
+        bf = self._binary_filter(sig)
+        return bf, self._edge_strength(bf)
 
     def _frames_from_nrzi(self, nrzi: np.ndarray) -> list[Ax25Frame]:
         """NRZI -> bits -> flags -> unstuffed, CRC-checked AX.25 frames
@@ -280,13 +302,16 @@ class Afsk1200Decoder(TimedDecoder):
         bits = self.decode_nrzi(nrzi)
         stuffed = self.find_bit_stuffing(bits)
         flags = self.find_flags(bits)
-        frames = []
+        self._count("framing.bauds", len(nrzi))
+        self._count("framing.flags", len(flags))
+        frames, checked = [], 0
         for fi in range(len(flags) - 1):
             seg = self.reduce_stuffed_bit(
                 bits[flags[fi] + 8: flags[fi + 1]],
                 stuffed[flags[fi] + 8: flags[fi + 1]])
             msg = seg[:-16]
             if len(seg) % 8 == 0 and len(msg) > 16 * 8:
+                checked += 1
                 sent = "".join(str(int(b)) for b in msg)
                 got = "".join(str(int(b)) for b in seg[-16:])
                 if crc.fcs_crc16_bits(sent) == got:
@@ -295,6 +320,8 @@ class Afsk1200Decoder(TimedDecoder):
                     frames.append(frame)
                     self._useful = 1
                     log.info("APRS frame at bit %d: %s", flags[fi], frame.info)
+        self._count("framing.crc_checks", checked)
+        self._count("framing.frames", len(frames))
         return frames
 
     def get_msg(self) -> str | None:

@@ -450,6 +450,27 @@ def test_walk_kernel_rejects_bad_arguments(dev):
         peaks.lookahead_walk(y_.double(), fmax.double(), fmin.double(), 0.0)
 
 
+def test_walk_kernel_names_in_the_trace(dev):
+    """A K2 launch shows in a `torch.profiler` trace as its three kernels,
+    under names that hold `k2_` and no library kernel's name, and its
+    events stay the plain walk's."""
+    y = stress_edges(100_011, 17, dev)
+    args = _walk_args(y, 11)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = peaks.lookahead_walk(*args, 0.0)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()}
+    k2 = ("k2_speculative_walks", "k2_stitch", "k2_gather")
+    assert len(names) == 3, names
+    assert sorted(next(k for k in k2 if k in n) for n in names) == sorted(k2)
+    for a, b in zip(got, peaks.lookahead_walk_plain(*args, 0.0)):
+        assert torch.equal(a, b)
+
+
 def _interpolated_tone(period: int, periods: int, dev):
     """A unit tone of `period` samples a period, 32x FFT-interpolated as
     peaks_fft interpolates it, float32 on `dev`."""
