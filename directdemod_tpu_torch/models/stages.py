@@ -12,7 +12,8 @@ a span costs a flag check.
 Counters: `TimedDecoder.counters` sums the work a decoder did (candidates
 copied, correlations run), always. While a profiler records, each count is
 also added to the session's tally (`session_counts()`), which restarts
-with each session.
+with each session. Code below the decoders (`ops/iir`'s block constants)
+adds to the tally alone through `count()`.
 """
 from __future__ import annotations
 
@@ -56,6 +57,14 @@ def span(name: str):
         return
     with torch.profiler.record_function(name):
         yield
+
+
+def count(name: str, n: int) -> None:
+    """Add `n` to the profiler session's tally under `name` while a
+    profiler records; nothing otherwise."""
+    if _recording():
+        tally = _session["counts"]
+        tally[name] = tally.get(name, 0) + n
 
 
 class TimedDecoder:
@@ -103,9 +112,7 @@ class TimedDecoder:
         session's tally while one records."""
         key = f"{self.layer}.{name}"
         self.counters[key] = self.counters.get(key, 0) + n
-        if _recording():
-            tally = _session["counts"]
-            tally[key] = tally.get(key, 0) + n
+        count(key, n)
 
     @property
     def stage_seconds(self) -> dict:

@@ -13,18 +13,45 @@ For a block of length L with incoming state s:
     s'   = A^L s + sum_t A^(L-1-t) B x[t]
 
 so the per-sample work is a batched FFT convolution with h[:L] plus two
-skinny matmuls against host fp64 constants. Only the 2-vector block-boundary
+skinny matmuls against fp64 constants. Only the 2-vector block-boundary
 states are sequential; the reference walks them with a `lax.scan`, the port
 with a log-depth doubling scan (torch has no scan, and a Python loop would
 launch ~N/L tiny kernels per section).
+
+The constants are built once a process: the host set of a (design, block
+length) by `_segment_constants`, every shorter block and ragged tail as
+exact slices of it (h[:p], S[:p], G[L-p:], and A^p by `matrix_power`, bit
+for bit `_segment_constants(..., p)`), and their copies on each device in
+each dtype kept, so a warm `apply` or `zero_phase` copies nothing to the
+device and never waits for it. Each cache drops its least recently used
+set past `_CACHE_SETS`. A build is the range `iir.constants`; while a
+profiler records, the tally (`models.stages.session_counts`) counts
+`iir.constants.built` (sets made) and `iir.constants.reused` (lookups
+served from the cache).
 """
 from __future__ import annotations
+
+import threading
+from collections import OrderedDict
 
 import numpy as np
 import torch
 
+from ..models import stages
 from . import design
 from .correlate import fft_len
+
+# sets each cache keeps (least recently used dropped first)
+_CACHE_SETS = 64
+# host fp64 (h, S, G) of each section, by (SOS bytes, block length)
+_host_sets: OrderedDict = OrderedDict()
+# device sets, by (SOS bytes, block, L, tail p, dtype, device)
+_device_sets: OrderedDict = OrderedDict()
+# unit-step initial states, by (SOS bytes, dtype, device)
+_step_states: OrderedDict = OrderedDict()
+# decoders in threads share the caches (a device set's build looks up its
+# host set, so the lock is reentrant)
+_cache_lock = threading.RLock()
 
 
 def _biquad_state_space(section):
@@ -56,6 +83,41 @@ def _segment_constants(A, B, C, D, L):
     return h, S, G, np.linalg.matrix_power(A, L)
 
 
+def _slice_constants(hSG, A, p):
+    """`_segment_constants(A, B, C, D, p)` from the (h, S, G) of a longer
+    block, p <= len(h): the same recurrences, so exact slices."""
+    h, S, G = hSG
+    return h[:p], S[:p], G[len(h) - p:], np.linalg.matrix_power(A, p)
+
+
+def _cached(cache: OrderedDict, key, make):
+    """(cache[key], False), or (make(), True) kept under `key` on a miss,
+    the least recently used entry dropped past `_CACHE_SETS`."""
+    with _cache_lock:
+        if key in cache:
+            cache.move_to_end(key)
+            return cache[key], False
+        cache[key] = value = make()
+        if len(cache) > _CACHE_SETS:
+            cache.popitem(last=False)
+        return value, True
+
+
+def _host_set(sos: np.ndarray, block: int) -> list:
+    """Each section's host (h, S, G) for `block`-sample blocks, built
+    once a process for each (design, block)."""
+    return _cached(_host_sets, (sos.tobytes(), block), lambda: [
+        _segment_constants(*_biquad_state_space(s), block)[:3] for s in sos])[0]
+
+
+def clear_constants() -> None:
+    """Drop every cached set, on the host and on the devices."""
+    with _cache_lock:
+        _host_sets.clear()
+        _device_sets.clear()
+        _step_states.clear()
+
+
 def _block_states(z0: torch.Tensor, f: torch.Tensor, M: torch.Tensor
                   ) -> torch.Tensor:
     """States entering each block: s[0] = z0, s[i+1] = M s[i] + f[i], for
@@ -79,7 +141,6 @@ class IirFilter:
     def __init__(self, sos, block: int = 4096):
         self.sos = np.asarray(sos, dtype=np.float64).reshape(-1, 6)
         self.block = int(block)
-        self._consts_cache: dict[int, list] = {}
 
     @staticmethod
     def design_butter(fs, cutoff_a, cutoff_b=None, order=6, kind="lowpass",
@@ -116,45 +177,64 @@ class IirFilter:
     def initial_state_step(self, dtype=torch.float32, device=None) -> torch.Tensor:
         """Raw `lfilter_zi` seed (the steady state of a unit step), per
         section scaled by the DC gain of the sections upstream of it."""
-        states = []
-        gain_in = 1.0
-        for s in self.sos:
-            states.append(design.lfilter_zi(s[:3], s[3:]) * gain_in)
-            gain_in *= float(np.sum(s[:3]) / np.sum(s[3:]))
-        return torch.as_tensor(np.concatenate(states), dtype=dtype, device=device)
+        return self._step_state(dtype, device).clone()
+
+    def _step_state(self, dtype, device) -> torch.Tensor:
+        """`initial_state_step`'s tensor, made once a process for each
+        (design, dtype, device); not to be written to."""
+        def make():
+            states = []
+            gain_in = 1.0
+            for s in self.sos:
+                states.append(design.lfilter_zi(s[:3], s[3:]) * gain_in)
+                gain_in *= float(np.sum(s[:3]) / np.sum(s[3:]))
+            return torch.as_tensor(np.concatenate(states), dtype=dtype, device=device)
+        return _cached(_step_states, (self.sos.tobytes(), dtype, device), make)[0]
 
     def initial_state_zero(self, dtype=torch.float32, device=None) -> torch.Tensor:
         """The all-zero state (a filter at rest)."""
         return torch.zeros(2 * self.n_sections, dtype=dtype, device=device)
 
-    def _consts(self, L: int) -> list:
-        if L not in self._consts_cache:
-            self._consts_cache[L] = [
-                _segment_constants(*_biquad_state_space(s), L) for s in self.sos]
-        return self._consts_cache[L]
+    def _constants(self, L: int, p: int, dtype, device) -> list:
+        """Each section's (h[:L], S[:L], G for L, A^L), and (G for p, A^p)
+        after them where p < L, as `dtype` tensors on `device`, for
+        L-sample blocks of which the last holds p: copies of slices of the
+        design's `block` set, made once a process for each (L, p, dtype,
+        device)."""
+        def t(a):
+            return torch.tensor(a, dtype=dtype, device=device)
 
-    def _apply_section(self, x, z, consts, consts_tail, np_last):
-        h, S, G, AL = consts
-        L = len(h)
+        def make():
+            out = []
+            with stages.span("iir.constants"):
+                for s, hSG in zip(self.sos, _host_set(self.sos, self.block)):
+                    A = _biquad_state_space(s)[0]
+                    tail = () if p == L else _slice_constants(hSG, A, p)[2:]
+                    out.append(tuple(t(a) for a in _slice_constants(hSG, A, L) + tail))
+            return out
+        consts, made = _cached(_device_sets, (self.sos.tobytes(), self.block,
+                                              L, p, dtype, device), make)
+        stages.count("iir.constants.built" if made else "iir.constants.reused", 1)
+        return consts
+
+    def _apply_section(self, x, z, consts, np_last):
+        h, S, G, AL = consts[:4]
+        L = h.shape[0]
         n = x.shape[0]
         nb = -(-n // L)
-
-        def t(a):
-            return torch.as_tensor(a, dtype=x.dtype, device=x.device)
-
         m = fft_len(2 * L - 1)
         xb = torch.nn.functional.pad(x, (0, nb * L - n)).reshape(nb, L)
-        f = xb @ t(G)                                     # (nb, 2)
-        s_all = _block_states(z.to(x.dtype), f, t(AL))    # (nb + 1, 2)
+        f = xb @ G                                        # (nb, 2)
+        s_all = _block_states(z.to(x.dtype), f, AL)       # (nb + 1, 2)
         s_hist = s_all[:nb]
-        conv = torch.fft.irfft(torch.fft.rfft(xb, n=m) * torch.fft.rfft(t(h), n=m),
+        conv = torch.fft.irfft(torch.fft.rfft(xb, n=m) * torch.fft.rfft(h, n=m),
                                n=m)[:, :L]
-        y = (conv + s_hist @ t(S).T).reshape(-1)[:n]
+        y = (conv + s_hist @ S.T).reshape(-1)[:n]
         if np_last == L:
             z_out = s_all[nb]
         else:
-            _, _, Gp, ALp = consts_tail
-            z_out = s_hist[-1] @ t(ALp).T + xb[-1, :np_last] @ t(Gp)
+            Gp, ALp = consts[4:]
+            z_out = s_hist[-1] @ ALp.T + xb[-1, :np_last] @ Gp
         return y, z_out
 
     def apply(self, x: torch.Tensor, z: torch.Tensor
@@ -172,14 +252,12 @@ class IirFilter:
         n = x.shape[0]
         L = min(self.block, max(16, n))
         np_last = n - (-(-n // L) - 1) * L
-        consts = self._consts(L)
-        consts_tail = consts if np_last == L else self._consts(np_last)
+        consts = self._constants(L, np_last, x.dtype, x.device)
         zs = z.reshape(self.n_sections, 2)
         z_out = []
         y = x
         for i in range(self.n_sections):
-            y, zo = self._apply_section(y, zs[i], consts[i], consts_tail[i],
-                                        np_last)
+            y, zo = self._apply_section(y, zs[i], consts[i], np_last)
             z_out.append(zo)
         return y, torch.stack(z_out).reshape(-1)
 
@@ -193,7 +271,7 @@ class IirFilter:
         head = 2 * x[0] - x[1:padlen + 1].flip(0)
         tail = 2 * x[-1] - x[-padlen - 1:-1].flip(0)
         ext = torch.cat([head, x, tail])
-        zi = self.initial_state_step(x.dtype, x.device)
+        zi = self._step_state(x.dtype, x.device)
         yf, _ = self.apply(ext, zi * ext[0])
         yr = yf.flip(0)
         yb, _ = self.apply(yr, zi * yr[0])

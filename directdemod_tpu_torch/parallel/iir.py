@@ -71,17 +71,16 @@ def _sharded_lfilter(mesh: Mesh, filt: IirFilter, x2d: torch.Tensor,
     n_local = int(x2d.shape[1])
     L = min(filt.block, max(16, n_local))
     np_last = n_local - (-(-n_local // L) - 1) * L
-    consts = filt._consts(L)
-    consts_tail = consts if np_last == L else filt._consts(np_last)
     sec = _shard_consts(filt, n_local)
     pows = _mpow(filt, n_local, ndev)
     ys = {pos: x2d[pos].to(devs[pos]) for pos in mine}
     rdt = x2d.dtype
+    consts = {pos: filt._constants(L, np_last, rdt, y.device) for pos, y in ys.items()}
     zis = np.asarray(zi, dtype=np.float64).reshape(filt.n_sections, 2)
     z_last = []
     for i in range(filt.n_sections):
         parts = {pos: filt._apply_section(y, torch.zeros(2, dtype=rdt, device=y.device),
-                                          consts[i], consts_tail[i], np_last)
+                                          consts[pos][i], np_last)
                  for pos, y in ys.items()}
         gathered = all_gather([parts[pos][1] if pos in parts else None
                                for pos in range(ndev)], devs, ranks)   # (ndev, 2) each

@@ -801,6 +801,37 @@ def test_pass2_batch_on_the_card_matches_cpu(dev, monkeypatch, capture, block_si
     assert card.dec.counters["psk.pass2.batches"] >= 1
 
 
+def test_iir_warm_apply_and_zero_phase_wait_for_nothing(dev):
+    """With a design's block constants on the card (one cold call), the
+    PSK front end's low-pass over a complex 20 M-sample block (a ragged
+    tail of 3,328 samples) and the NOAA image band-pass's `zero_phase`
+    run under `torch.cuda.set_sync_debug_mode("error")`: no blocking copy
+    to the card and no synchronise. They give the cold call's tensors bit
+    for bit."""
+    from directdemod_tpu_torch.ops import iir
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn(constants.PROC_CHUNKSIZE, dtype=torch.complex64,
+                    device=dev, generator=g)
+    audio = torch.randn(4_000_000, device=dev, generator=g)
+
+    def run():
+        lp = iir.IirFilter.design_butter(FS, constants.FUNCUBE_DEFAULT_BW,
+                                         order=6, kind="lowpass")
+        bp = iir.IirFilter.design_butter(60235, 400, 4400, order=6,
+                                         kind="bandpass")
+        y, z = lp.apply(x, lp.initial_state_step(torch.float32, dev))
+        return y, z, bp.zero_phase(audio)
+    cold = run()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        warm = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for a, b in zip(cold, warm):
+        assert torch.equal(a, b)
+
+
 def test_meteor_decode_on_the_card_matches_cpu(dev):
     """The QPSK timing loop steps backwards at times, so the last-ulp
     differences of the two low-pass filters can move the loops' first

@@ -24,6 +24,7 @@ from directdemod_tpu.ops import resample as jrs
 from directdemod_tpu.ops import unpack as junpack
 from directdemod_tpu.utils import logsetup as jlogsetup
 from directdemod_tpu_torch import constants
+from directdemod_tpu_torch.models import stages
 from directdemod_tpu_torch.models.apt import median
 from directdemod_tpu_torch.ops import am, correlate, design, fir, fm, iir, peaks
 from directdemod_tpu_torch.ops import resample as rs
@@ -256,6 +257,192 @@ def test_iir_apply_with_state(rng):
     yr, zr = jf.apply(jnp.asarray(x), jnp.asarray(z))
     _close(y.numpy(), yr, 2e-5)
     _close(zo.numpy(), zr, 2e-5)
+
+
+# the decoders' designs: the PSK low-pass (Funcube), the AFSK and NOAA
+# band-passes at their audio rates
+_IIR_DESIGNS = {
+    "psk_lowpass": (2_048_000, constants.FUNCUBE_DEFAULT_BW, None, "lowpass"),
+    "afsk_bandpass": (rs.decim_params(2_048_000, constants.AFSK_DEFAULT_BW)[1],
+                      constants.AFSK_MARK_HZ - 500, constants.AFSK_SPACE_HZ + 500,
+                      "bandpass"),
+    "noaa_bandpass": (rs.decim_params(2_048_000, constants.NOAA_FMBW)[1],
+                      400, 4400, "bandpass"),
+}
+
+
+def _iir_design(name):
+    fs, a, b, kind = _IIR_DESIGNS[name]
+    return iir.IirFilter.design_butter(fs, a, b, order=6, kind=kind)
+
+
+@pytest.mark.parametrize("p", [16, 1792, 2246, 2944, 3328, 4095])
+@pytest.mark.parametrize("name", sorted(_IIR_DESIGNS))
+def test_iir_tail_constants_are_slices_of_the_block_set(name, p):
+    """A p-sample tail's constants are h[:p], S[:p], G[L-p:] of the
+    4,096-sample set and A^p its matrix power: the arrays a build for p
+    gives, bit for bit."""
+    filt = _iir_design(name)
+    for s, hSG in zip(filt.sos, iir._host_set(filt.sos, 4096)):
+        ss = iir._biquad_state_space(s)
+        h, S, G = hSG
+        got = iir._slice_constants(hSG, ss[0], p)
+        for a, b in zip((h[:p], S[:p], G[4096 - p:]), got):
+            assert np.shares_memory(a, b) and np.array_equal(a, b)
+        for a, b in zip(got, iir._segment_constants(*ss, p)):
+            assert np.array_equal(a, b)
+
+
+def test_iir_filters_of_one_design_share_a_build(rng):
+    """From a cleared cache two filters of one design build one set, and
+    the second's lookup is served from it: counted in the session's tally
+    while a profiler records, the build one `iir.constants` range."""
+    iir.clear_constants()
+    x = _t(rng.standard_normal(3 * 4096).astype(np.float32))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for _ in range(2):
+            filt = _iir_design("afsk_bandpass")
+            filt.apply(x, filt.initial_state_zero())
+    assert stages.session_counts() == {"iir.constants.built": 1,
+                                       "iir.constants.reused": 1}
+    assert [e.count for e in prof.key_averages() if e.key == "iir.constants"] == [1]
+
+
+def test_iir_segment_loop_runs_once_a_design_and_block(rng, monkeypatch):
+    """Every block length and tail of a design comes from its one
+    `block`-sample build: blocks with a ragged tail, a short input, a
+    complex input and a zero-phase pass run the loop once."""
+    iir.clear_constants()
+    calls = []
+    orig = iir._segment_constants
+
+    def counted(A, B, C, D, L):
+        calls.append(L)
+        return orig(A, B, C, D, L)
+    monkeypatch.setattr(iir, "_segment_constants", counted)
+    filt = _iir_design("psk_lowpass")
+    for n in (3 * 4096 + 1234, 777, 10):
+        filt.apply(_t(rng.standard_normal(n).astype(np.float32)),
+                   filt.initial_state_step())
+    xc = (rng.standard_normal(5000) + 1j * rng.standard_normal(5000)).astype(np.complex64)
+    filt.apply(_t(xc), filt.initial_state_step())
+    filt.zero_phase(_t(rng.standard_normal(9000).astype(np.float32)))
+    assert calls == [4096] * filt.n_sections
+
+
+def test_iir_constants_cache_is_bounded(rng):
+    """A process that filters many lengths keeps at most `_CACHE_SETS`
+    device sets, dropping the least recently used first."""
+    iir.clear_constants()
+    filt = _iir_design("psk_lowpass")
+    z = filt.initial_state_zero()
+    first = _t(rng.standard_normal(16).astype(np.float32))
+    for n in range(16, 16 + iir._CACHE_SETS + 8):
+        filt.apply(_t(rng.standard_normal(n).astype(np.float32)), z)
+        filt.apply(first, z)                     # kept as the most recent
+    assert len(iir._device_sets) == iir._CACHE_SETS
+    assert len(iir._host_sets) == 1
+    kept = {k[2] for k in iir._device_sets}
+    assert 16 in kept and 17 not in kept
+
+
+def test_iir_threads_share_one_build(rng, monkeypatch):
+    """Decoders in threads that filter at once build each design's set
+    once and get a single thread's outputs."""
+    import sys
+    import threading
+    iir.clear_constants()
+    builds = []
+    orig = iir._segment_constants
+
+    def counted(A, B, C, D, L):
+        builds.append(L)
+        return orig(A, B, C, D, L)
+    monkeypatch.setattr(iir, "_segment_constants", counted)
+    xs = [_t(rng.standard_normal(n).astype(np.float32)) for n in (5000, 777, 9000)]
+    names = sorted(_IIR_DESIGNS)
+
+    def work(k):
+        filt = _iir_design(names[k % len(names)])
+        return [filt.apply(x, filt.initial_state_step())[0] for x in xs]
+    want = [work(k) for k in range(len(names))]
+    assert len(builds) == sum(_iir_design(n).n_sections for n in names)
+    iir.clear_constants()
+    builds.clear()
+    got, errors = {}, []
+
+    def run(k):
+        try:
+            got[k] = work(k)
+        except Exception as e:          # reported by the assertion below
+            errors.append(e)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=run, args=(k,)) for k in range(12)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not errors and not any(th.is_alive() for th in threads)
+    assert len(builds) == sum(_iir_design(n).n_sections for n in names)
+    for k in range(12):
+        assert all(torch.equal(a, b) for a, b in zip(got[k], want[k % len(names)]))
+
+
+def _fresh_constants(self, L, p, dtype, device):
+    """A build for L and one for p on every call, uncached."""
+    out = []
+    for s in self.sos:
+        ss = iir._biquad_state_space(s)
+        h, S, G, AL = (torch.as_tensor(a, dtype=dtype, device=device)
+                       for a in iir._segment_constants(*ss, L))
+        _, _, Gp, ALp = (torch.as_tensor(a, dtype=dtype, device=device)
+                         for a in iir._segment_constants(*ss, p))
+        out.append((h, S, G, AL, Gp, ALp))
+    return out
+
+
+@pytest.mark.parametrize("case", ["real", "complex_ragged", "ragged", "short",
+                                  "float64", "zero_phase"])
+def test_iir_cached_constants_match_a_fresh_build(rng, monkeypatch, case):
+    """`apply` and `zero_phase` from a cold cache and a warm one give
+    tensors bit for bit those of a fresh, uncached build."""
+    filt = _iir_design("noaa_bandpass")
+    n = {"real": 3 * 4096, "short": 777, "zero_phase": 20_000}.get(case, 3 * 4096 + 1234)
+    x = rng.standard_normal(n)
+    z = rng.standard_normal(2 * filt.n_sections)
+    if case == "complex_ragged":
+        x = x + 1j * rng.standard_normal(n)
+        z = z + 1j * rng.standard_normal(2 * filt.n_sections)
+    dt = np.float64 if case == "float64" else np.float32
+    x, z = _t(x.astype(np.result_type(dt, x.dtype))), \
+        _t(z.astype(np.result_type(dt, z.dtype)))
+
+    def run():
+        if case == "zero_phase":
+            return [filt.zero_phase(x)]
+        return list(filt.apply(x, z))
+    iir.clear_constants()
+    cold, warm = run(), run()
+    monkeypatch.setattr(iir.IirFilter, "_constants", _fresh_constants)
+    fresh = run()
+    for a, b, c in zip(cold, warm, fresh):
+        assert a.dtype == c.dtype and a.shape == c.shape
+        assert torch.equal(a, c) and torch.equal(b, c)
+
+
+def test_iir_step_state_is_a_copy():
+    """`initial_state_step` hands out its own tensor: writing to one leaves
+    the cached state and the next call's as they were."""
+    filt = _iir_design("psk_lowpass")
+    a = filt.initial_state_step()
+    ref = a.clone()
+    a.zero_()
+    assert torch.equal(filt.initial_state_step(), ref)
 
 
 def test_quad_demod(rng):
