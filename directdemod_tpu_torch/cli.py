@@ -18,6 +18,14 @@ for the JAX tests' 8 virtual devices) before the channel loop, so a count
 that differs from the devices raises, outside the per-channel fence, as the
 JAX CLI does. `--map` (with `--tle=<file>`) draws the NOAA map overlay
 (`models.geo`), which logs an error and writes nothing without pyorbital.
+
+Two or more `-d noaa` channels that share the bandwidth and the start and
+end limits, in a run without `--mesh`, are decoded by one
+`models.noaa_bank.NoaaBankDecoder`: one read of the capture for all of
+them, the same files and report entries as channel-by-channel decoding,
+each entry with `"bank"`, the number of channels in the bank.
+`--resident` copies the capture to the device once a run (the span that
+every channel's window lies in), not once a channel.
 """
 from __future__ import annotations
 
@@ -141,6 +149,33 @@ def main(argv=None, device=None) -> int:
         "channels": [],
     }
 
+    def channel_offset(i: int):
+        """(offset from the centre in Hz, the centre as the report gives
+        it or None) of channel i."""
+        if freqs[i] is None:
+            return constants.IQ_FREQOFFSET * (-1 if "-q" in flags else 1), None
+        explicit_c = [v for k, v in optlist if k == "-c" and v != "e"]
+        if explicit_c:
+            centre = explicit_c[0]
+            freq_offset = freqs[i] - int(centre)
+        else:
+            token = [t for t in file_name.split("_") if t[-2:] == "Hz"][0][:-2]
+            centre = int(token[:-1]) * 1000 if token[-1] == "k" else int(token)
+            freq_offset = freqs[i] - centre
+        return freq_offset * (-1 if "-q" in flags else 1), centre
+
+    # the NOAA channels one bank decodes, and their offsets
+    bank_channels, bank_offsets, bank = [], [], None
+    noaa = [i for i, d in enumerate(decoders) if d == "noaa"]
+    if (mesh is None and len(noaa) > 1
+            and len({(bandwidths[i], starts[i], ends[i]) for i in noaa}) == 1):
+        try:
+            bank_offsets = [channel_offset(i)[0] for i in noaa]
+            bank_channels = noaa
+        except (IndexError, ValueError):
+            pass    # each channel then meets the fault in its own fence
+    held = None     # the --resident copy, made at the first channel
+
     for i in range(len(freqs)):
         try:
             entry = {"frequency": freqs[i], "bandwidth": bandwidths[i],
@@ -148,34 +183,19 @@ def main(argv=None, device=None) -> int:
                      "endFlag": ends[i], "outFileName": outs[i]}
             logging.info("Beginning decoding of frequency %d of %d", i + 1, len(freqs))
 
-            freq_offset = constants.IQ_FREQOFFSET
-            if freqs[i] is not None:
-                explicit_c = [v for k, v in optlist if k == "-c" and v != "e"]
-                if explicit_c:
-                    freq_offset = freqs[i] - int(explicit_c[0])
-                    report["centreFreq"] = explicit_c[0]
-                else:
-                    token = [t for t in file_name.split("_") if t[-2:] == "Hz"][0][:-2]
-                    if token[-1] == "k":
-                        centre = int(token[:-1]) * 1000
-                    else:
-                        centre = int(token)
-                    freq_offset = freqs[i] - centre
-                    report["centreFreq"] = centre
-            if "-q" in flags:
-                freq_offset *= -1
+            freq_offset, centre = channel_offset(i)
+            if centre is not None:
+                report["centreFreq"] = centre
             entry["offset"] = freq_offset
             logging.info("Offset for this frequency: %f Hz", freq_offset)
 
-            sigsrc.limit(starts[i], ends[i])
-            src_i = sigsrc
-            if resident:
+            if resident and held is None:
                 t_up = perf_counter()
-                wrapped = sources.resident_copy(sigsrc, device)
-                if wrapped is not None:
-                    src_i = wrapped
-                    entry["residentUploadSeconds"] = round(
-                        perf_counter() - t_up, 3)
+                held = _resident(sigsrc, starts, ends, device)
+                if held[0] is not None:
+                    entry["residentUploadSeconds"] = round(perf_counter() - t_up, 3)
+            sigsrc.limit(starts[i], ends[i])
+            src_i = sigsrc if held is None else _window(held, sigsrc, starts[i], ends[i])
             t_dec = perf_counter()
             entry["resident"] = src_i is not sigsrc
             entry["device"] = str(device)
@@ -193,9 +213,17 @@ def main(argv=None, device=None) -> int:
                     color_file = outs[i] + "_color.png"
                     map_rot, map_nrot = outs[i] + "_map_rot.png", outs[i] + "_map.png"
 
-                from .models.noaa import NoaaDecoder
-                dec = NoaaDecoder(src_i, freq_offset, bandwidths[i], device=device,
-                                  mesh=mesh)
+                if i in bank_channels:
+                    if bank is None:
+                        from .models.noaa_bank import NoaaBankDecoder
+                        bank = NoaaBankDecoder(src_i, bank_offsets, bandwidths[i],
+                                               device=device)
+                    dec = bank.channels[bank_channels.index(i)]
+                    entry["bank"] = len(bank_channels)
+                else:
+                    from .models.noaa import NoaaDecoder
+                    dec = NoaaDecoder(src_i, freq_offset, bandwidths[i],
+                                      device=device, mesh=mesh)
                 if calc_image and dec.useful == 1:
                     sinks.write_image(img_file, dec.get_image())
                     entry["filesCreated"].append(img_file)
@@ -269,6 +297,35 @@ def main(argv=None, device=None) -> int:
         with open(report_file, "w") as f:
             json.dump(report, f)
     return 0
+
+
+def _resident(sigsrc, starts, ends, device) -> tuple:
+    """The --resident copy, made once a run: (a DeviceRawSource of the
+    span of the capture that every whole channel window lies in, or None
+    when there is none or it does not fit on the device
+    (`sources.resident_copy`); the span's first and end sample; the
+    capture's length)."""
+    sigsrc.limit()
+    total = sigsrc.length
+    spans = [(s or 0, total if e is None else e) for s, e in zip(starts, ends)]
+    spans = [(s, e) for s, e in spans if 0 <= s < e <= total]
+    if not spans:
+        return None, 0, 0, total
+    lo, hi = min(s for s, _ in spans), max(e for _, e in spans)
+    sigsrc.limit(lo, hi)
+    return sources.resident_copy(sigsrc, device), lo, hi, total
+
+
+def _window(held: tuple, sigsrc, start, end):
+    """The source of the channel window (start, end): the --resident copy
+    windowed to it where the copy holds it, else `sigsrc` (windowed by the
+    caller)."""
+    wrapped, lo, hi, total = held
+    s, e = start or 0, total if end is None else end
+    if wrapped is None or not lo <= s < e <= hi:
+        return sigsrc
+    wrapped.limit(s - lo, e - lo)
+    return wrapped
 
 
 if __name__ == "__main__":

@@ -246,8 +246,13 @@ class DdcFmStream:
                 seg = torch.cat([hs, xh.expand(rot.shape[0], -1)], dim=1)[:, off:]
                 c_head = torch.cat([ddc.conv_windows(seg[ch], taps_rev[ch], j, nh)
                                     for ch in range(rot.shape[0])])
-                prev = torch.cat([c_prev[:, None], c_head[:, :-1]], dim=1)
-                audio.append(torch.angle(c_head * prev.conj() * rot[:, None]))
+                # a channel at a time: the CPU rounds a longer row of the
+                # complex products otherwise, and a bank's channel would
+                # then differ from its one-channel stream
+                audio.append(torch.cat([
+                    ddc._discriminate(c_head[ch:ch + 1], rot[ch:ch + 1],
+                                      c_prev[ch:ch + 1])
+                    for ch in range(rot.shape[0])]))
                 c_prev = c_head[:, -1].contiguous()
             if out_len > nh:
                 start = off + nh * j - (k - 1)          # first body window in x

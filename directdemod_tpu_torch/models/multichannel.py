@@ -9,6 +9,11 @@ ONE launch of K1 (raw bytes) or K4 (complex samples) for all channels, the
 block staged once on the card. Each channel computes what the
 single-channel front end at its offset computes, output for output.
 
+`stream` runs the bank over a whole source for a decoder and leaves the
+(C, M) outputs on the device: the capture as one block, so one launch for
+all channels, when its bytes already lie there (`io.sources.device_bytes`),
+else one launch a block (`models.noaa_bank` decodes NOAA APT from it).
+
 With `mesh=` (`parallel.mesh`) the channels are split over its `channel`
 shards, each shard a bank of its own on its device: every block is copied
 to each shard's device and runs there through one kernel launch for the
@@ -20,7 +25,9 @@ import numpy as np
 import torch
 
 from .. import constants
+from ..device import resolve
 from ..io.feeder import BlockFeeder
+from ..io.sources import device_bytes
 from .frontend import DdcFm, DdcFmStream
 
 
@@ -75,3 +82,19 @@ class MultiDdcFm(DdcFm):
                 for s, _, x in BlockFeeder(source, block_size, streams[0].device,
                                            dtype)]
         return torch.cat(outs, dim=-1).numpy(), self.out_rate
+
+    def stream(self, source, device=None,
+               block_size: int = constants.PROC_CHUNKSIZE) -> torch.Tensor:
+        """The (C, M) float32 outputs over the whole of `source`, left on
+        `device` (the port's device rule): one block, one kernel launch,
+        when the source's bytes lie on that device, else one launch a block
+        of `block_size` samples. No mesh."""
+        if self.mesh is not None:
+            raise ValueError("MultiDdcFm.stream runs a bank without a mesh")
+        dev = resolve(device)
+        whole = device_bytes(source, dev) is not None
+        feed = BlockFeeder(source, block_size, dev,
+                           blocks=[(0, source.length)] if whole else None)
+        st = DdcFmStream(self, dev)
+        outs = [st.step(x, s) for s, _, x in feed]
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)

@@ -16,6 +16,11 @@ With `mesh=` (`parallel.mesh`) the decode runs its stages over the mesh's
 needle halos (`parallel.correlate`), the image stage's exact filtfilt and
 blocked envelope (`parallel.iir`, `parallel.am`), and the accurate sync's
 window batches split over the shards (the generic per-window walk).
+
+The stages' work on the device is in module functions (`crude_sync_rows`,
+`usefulness`, `decode_image`, `window_starts`, `iq_windows`,
+`mix_windows`, `demod_envelope`, `fast_rows`) that `models.noaa_bank`
+runs for several channels of one capture.
 """
 from __future__ import annotations
 
@@ -163,7 +168,7 @@ class NoaaDecoder(TimedDecoder):
             with self._stage("crude_sync"), \
                     self.profiler.stage("sync_correlate", 2 * int(audio.shape[0])):
                 if self.mesh is None:
-                    self._sync_a, self._sync_b = self._crude_sync(audio, rate)
+                    self._sync_a, self._sync_b = crude_sync_rows(self, audio, rate)
                 else:
                     from ..parallel.correlate import sharded_find_sync_peaks
                     env = am_ops.envelope_blocked(audio.float(), AM_BLOCK).cpu().numpy()
@@ -174,48 +179,8 @@ class NoaaDecoder(TimedDecoder):
                             K.NOAA_PEAKHEIGHTWIGGLE, K.NOAA_MINPEAKDIST)
                         for bits in (K.NOAA_SYNCA, K.NOAA_SYNCB))
             self._count("crude_sync.syncs", len(self._sync_a) + len(self._sync_b))
-            self._useful = self._usefulness()
+            self._useful = usefulness(self._sync_a, self._sync_b, rate)
         return [self._sync_a, self._sync_b]
-
-    def _crude_sync(self, audio: torch.Tensor, rate: int
-                    ) -> tuple[np.ndarray, np.ndarray]:
-        """Envelope -> fused A/B normalized correlation -> adaptive
-        thresholds -> min-distance grouping of both rows, all on the
-        device; one copy of the syncs and the candidates' count to the
-        host."""
-        needles = _apt_needles(rate, audio.device)
-        env = am_ops.envelope_blocked(audio.float(), AM_BLOCK)
-        cors = corr_ops.norm_correlate_multi_blocked(env, needles)
-        thr, _ = peaks.adaptive_threshold(cors, rate, K.NOAA_PEAKHEIGHTWIGGLE)
-        cuda = cors.device.type == "cuda"
-        if cuda:
-            # wait for the correlation, so that the group span holds the
-            # grouping alone
-            torch.cuda.current_stream(cors.device).synchronize()
-        with self._span("crude_sync.group"):
-            slots = peaks.group_peaks_dense(cors, thr, K.NOAA_MINPEAKDIST * rate)
-            count = (cors > thr[:, None]).sum()
-            if cuda:
-                torch.cuda.current_stream(cors.device).synchronize()
-        with self._span("crude_sync.copy"):
-            host = torch.cat([slots.reshape(-1), count.reshape(1)]).cpu().numpy()
-        self._count("crude_sync.candidates", int(host[-1]))
-        self._count("crude_sync.device_rows", int(cors.shape[0]))
-        n, half = cors.shape[-1], needles.shape[-1] // 2
-        a, b = (row[row < n] - half for row in host[:-1].reshape(2, -1))
-        return a, b
-
-    def _usefulness(self) -> int:
-        """10 consecutive syncs spaced 0.5 s within 5 samples
-        (ref decode_noaa.py:793-804)."""
-        for syncs in (self._sync_a, self._sync_b):
-            d = np.abs(np.diff(syncs) - self._sync_rate * 0.5)
-            w = K.NOAA_DETECTCONSSYNCSNUM
-            if len(d) >= w:
-                wins = np.lib.stride_tricks.sliding_window_view(d, w)
-                if np.min(np.max(wins, axis=-1)) < K.NOAA_DETECTMAXCHANGE:
-                    return 1
-        return 0
 
     @property
     def useful(self) -> int:
@@ -227,43 +192,12 @@ class NoaaDecoder(TimedDecoder):
     def get_image(self) -> np.ndarray:
         """Calibrated APT image (ref decode_noaa.py:255-465)."""
         if self._image is None:
-            from . import apt
             self.get_crude_sync()
             audio, rate = self._audio
             with self._stage("image"):
-                bp = iir.IirFilter.design_butter(rate, 400, 4400, order=6,
-                                                 kind="bandpass")
-                n_env = int(audio.shape[0])
-                csync_a = np.asarray(self._sync_a, dtype=np.float64) \
-                    / self._sync_rate * rate
-                csync_b = np.asarray(self._sync_b, dtype=np.float64) \
-                    / self._sync_rate * rate
-                ucsync = csync_a.copy()
-                csync_a = apt.fill_syncs(csync_a, n_env)
-                csync_b = apt.fill_syncs(csync_b, n_env)
-
-                # channel A first, pairwise (ref decode_noaa.py:294-303)
-                if csync_b and csync_a and csync_b[0] < csync_a[0]:
-                    csync_b.pop(0)
-                if csync_b and csync_a and csync_b[-1] < csync_a[-1]:
-                    csync_a.pop(-1)
-                if len(csync_a) != len(csync_b):
-                    log.error("sync A/B count mismatch; deriving B from A")
-                    csync_b = list(np.asarray(csync_a) + int(0.25 * rate))
-
-                env = None
-                if self.mesh is not None:
-                    # the exact sharded filtfilt and the block-parallel
-                    # envelope
-                    from ..parallel.am import sharded_envelope_blocked
-                    from ..parallel.iir import sharded_zero_phase
-                    filtered = sharded_zero_phase(
-                        self.mesh, bp, audio.float().cpu().numpy())
-                    env = torch.from_numpy(sharded_envelope_blocked(
-                        self.mesh, filtered, AM_BLOCK)).to(self.device)
-                img, ida, idb = apt.assemble_image(audio, rate, csync_a,
-                                                   csync_b, ucsync, bp,
-                                                   AM_BLOCK, env=env)
+                img, ida, idb = decode_image(audio, rate, self._sync_a,
+                                             self._sync_b, self._sync_rate,
+                                             self.mesh)
             self._image = img
             self._ch_id = (ida, idb)
         return self._image
@@ -315,11 +249,8 @@ class NoaaDecoder(TimedDecoder):
         with self._stage("accurate_sync"):
             for bits, syncs in ((K.NOAA_SYNCA, self._sync_a),
                                 (K.NOAA_SYNCB, self._sync_b)):
-                centers = np.asarray(syncs, dtype=np.float64) \
-                    / self._sync_rate * fs
-                starts = [int(c) - width for c in centers
-                          if int(c) - width >= 0
-                          and int(c) + width <= self.src.length]
+                starts = window_starts(syncs, self._sync_rate, fs, width,
+                                       self.src.length)
                 needle = corr_ops.apt_needle(bits, fs, K.NOAA_T,
                                              positive=use_norm_correlate)
                 nj = torch.as_tensor(needle, dtype=torch.float32,
@@ -329,8 +260,8 @@ class NoaaDecoder(TimedDecoder):
                 found = []
                 for g0 in range(0, len(starts), group):
                     gs = starts[g0:g0 + group]
-                    found += reduce(self._windows(gs, 2 * width), nj,
-                                    self.offset, fs, use_norm_correlate, gs)
+                    found += reduce(iq_windows(self.src, self.device, gs, 2 * width),
+                                    nj, self.offset, fs, use_norm_correlate, gs)
                 results.append([[f[i] for f in found] for i in range(3)])
         (da, qa, ta), (db, qb, tb) = results
         out = [da, list(np.diff(da)), qa, ta, db, list(np.diff(db)), qb, tb]
@@ -367,17 +298,109 @@ class NoaaDecoder(TimedDecoder):
         return [(int(p), float(q), None if np.isnan(t) else float(t))
                 for i in range(ndev) for p, q, t in found[i]]
 
-    def _windows(self, starts: list, n_win: int) -> torch.Tensor:
-        """(len(starts), n_win) complex64 IQ windows on the device: gathered
-        from the capture bytes where they already lie on the device, else
-        read on the host and copied over."""
-        raw = device_bytes(self.src, self.device)
-        if raw is not None:
-            idx = torch.as_tensor(np.asarray(starts, dtype=np.int64),
-                                  device=self.device)
-            return unpack.iq_u8_to_complex(raw.unfold(0, 2 * n_win, 2)[idx])
-        rows = np.stack([self.src.read(s0, s0 + n_win) for s0 in starts])
-        return torch.from_numpy(rows.astype(np.complex64)).to(self.device)
+
+def crude_sync_rows(dec: TimedDecoder, audio: torch.Tensor, rate: int
+                    ) -> list:
+    """The crude sync of the FM audio `audio`, (n,) for one channel or
+    (C, n) for a bank, at `rate`: envelope -> fused A/B normalized
+    correlation -> adaptive thresholds -> min-distance grouping of every
+    row (A and B of each channel), all on the device; one copy of the syncs
+    and the candidates' count to the host. Returns the rows' sync indices
+    on the host, [A, B] or [A0, B0, A1, B1, ...]. Spans and counters go to
+    `dec` (`TimedDecoder`) under its layer: `crude_sync.group`,
+    `crude_sync.copy`, `crude_sync.candidates`, `crude_sync.device_rows`."""
+    needles = _apt_needles(rate, audio.device)
+    env = am_ops.envelope_blocked(audio.float(), AM_BLOCK)
+    n = int(audio.shape[-1])
+    cors = corr_ops.norm_correlate_multi_blocked(env, needles).reshape(-1, n)
+    thr, _ = peaks.adaptive_threshold(cors, rate, K.NOAA_PEAKHEIGHTWIGGLE)
+    cuda = cors.device.type == "cuda"
+    if cuda:
+        # wait for the correlation, so that the group span holds the
+        # grouping alone
+        torch.cuda.current_stream(cors.device).synchronize()
+    with dec._span("crude_sync.group"):
+        slots = peaks.group_peaks_dense(cors, thr, K.NOAA_MINPEAKDIST * rate)
+        count = (cors > thr[:, None]).sum()
+        if cuda:
+            torch.cuda.current_stream(cors.device).synchronize()
+    with dec._span("crude_sync.copy"):
+        host = torch.cat([slots.reshape(-1), count.reshape(1)]).cpu().numpy()
+    dec._count("crude_sync.candidates", int(host[-1]))
+    dec._count("crude_sync.device_rows", int(cors.shape[0]))
+    half = needles.shape[-1] // 2
+    return [row[row < n] - half for row in host[:-1].reshape(cors.shape[0], -1)]
+
+
+def usefulness(sync_a, sync_b, sync_rate: int) -> int:
+    """10 consecutive syncs spaced 0.5 s within 5 samples
+    (ref decode_noaa.py:793-804)."""
+    for syncs in (sync_a, sync_b):
+        d = np.abs(np.diff(syncs) - sync_rate * 0.5)
+        w = K.NOAA_DETECTCONSSYNCSNUM
+        if len(d) >= w:
+            wins = np.lib.stride_tricks.sliding_window_view(d, w)
+            if np.min(np.max(wins, axis=-1)) < K.NOAA_DETECTMAXCHANGE:
+                return 1
+    return 0
+
+
+def decode_image(audio: torch.Tensor, rate: int, sync_a, sync_b,
+                 sync_rate: int, mesh=None):
+    """The calibrated APT image of one channel's FM audio `audio` (1-D, on
+    its device, at `rate`) with its lines cut at the crude syncs `sync_a`,
+    `sync_b` (at `sync_rate`; ref decode_noaa.py:255-465). With `mesh` the
+    band-passed envelope comes from the exact sharded filtfilt and the
+    block-parallel envelope. Returns (image, channel_id_a, channel_id_b)."""
+    from . import apt
+    bp = iir.IirFilter.design_butter(rate, 400, 4400, order=6, kind="bandpass")
+    n_env = int(audio.shape[0])
+    csync_a = np.asarray(sync_a, dtype=np.float64) / sync_rate * rate
+    csync_b = np.asarray(sync_b, dtype=np.float64) / sync_rate * rate
+    ucsync = csync_a.copy()
+    csync_a = apt.fill_syncs(csync_a, n_env)
+    csync_b = apt.fill_syncs(csync_b, n_env)
+
+    # channel A first, pairwise (ref decode_noaa.py:294-303)
+    if csync_b and csync_a and csync_b[0] < csync_a[0]:
+        csync_b.pop(0)
+    if csync_b and csync_a and csync_b[-1] < csync_a[-1]:
+        csync_a.pop(-1)
+    if len(csync_a) != len(csync_b):
+        log.error("sync A/B count mismatch; deriving B from A")
+        csync_b = list(np.asarray(csync_a) + int(0.25 * rate))
+
+    env = None
+    if mesh is not None:
+        from ..parallel.am import sharded_envelope_blocked
+        from ..parallel.iir import sharded_zero_phase
+        filtered = sharded_zero_phase(mesh, bp, audio.float().cpu().numpy())
+        env = torch.from_numpy(sharded_envelope_blocked(
+            mesh, filtered, AM_BLOCK)).to(audio.device)
+    return apt.assemble_image(audio, rate, csync_a, csync_b, ucsync, bp,
+                              AM_BLOCK, env=env)
+
+
+def window_starts(syncs, sync_rate: int, fs: float, width: int,
+                  length: int) -> list:
+    """First samples of the accurate sync's windows, 2 `width` samples
+    about each crude sync (at `sync_rate`) mapped to the full rate `fs`,
+    for the windows that lie inside the `length`-sample capture."""
+    centers = np.asarray(syncs, dtype=np.float64) / sync_rate * fs
+    return [int(c) - width for c in centers
+            if int(c) - width >= 0 and int(c) + width <= length]
+
+
+def iq_windows(src, device, starts: list, n_win: int) -> torch.Tensor:
+    """(len(starts), n_win) complex64 IQ windows of `src` on `device`:
+    gathered from the capture bytes where they already lie on the device,
+    else read on the host and copied over."""
+    raw = device_bytes(src, device)
+    if raw is not None:
+        idx = torch.as_tensor(np.asarray(starts, dtype=np.int64), device=device)
+        return unpack.iq_u8_to_complex(raw.unfold(0, 2 * n_win, 2)[idx])
+    rows = np.stack([src.read(s0, s0 + n_win) for s0 in starts])
+    return torch.from_numpy(rows.astype(np.complex64)).to(device)
 
 
 def _apt_needles(rate: int, device) -> torch.Tensor:
@@ -393,10 +416,21 @@ def _window_envelope(batch: torch.Tensor, offset: float, fs: float
     """Per-window chain at the full rate (ref decode_noaa.py:852): NCO with
     window-local phase -> zero-phase Blackman-Harris -> FM -> Hilbert
     envelope. (rows, n) complex -> (rows, n - 1) float32."""
+    return demod_envelope(mix_windows(batch, offset, fs))
+
+
+def mix_windows(batch: torch.Tensor, offset: float, fs: float) -> torch.Tensor:
+    """The windows (rows, n) mixed down by `offset` Hz with window-local
+    phase."""
     n = batch.shape[1]
     ph = torch.arange(n, dtype=torch.float32, device=batch.device) \
         * (-2.0 * np.pi * offset / fs)
-    mixed = batch * torch.polar(torch.ones_like(ph), ph)[None, :]
+    return batch * torch.polar(torch.ones_like(ph), ph)[None, :]
+
+
+def demod_envelope(mixed: torch.Tensor) -> torch.Tensor:
+    """Zero-phase Blackman-Harris -> FM -> Hilbert envelope of mixed
+    windows: (rows, n) complex -> (rows, n - 1) float32."""
     f = fir.fir_zero_phase(mixed, design.blackmanharris(151))
     d, _ = fm_ops.quad_demod(f, None)
     return am_ops.envelope(d)
@@ -419,7 +453,14 @@ def _fast_reduce(batch, nj, offset, fs, use_norm, starts) -> list:
     needle length after the sync (ref noaa.py:673-693). Returns
     (sync, quality, time sync or None) per window with a detection."""
     env, cor = _windows_env_cor(batch, nj, offset, fs, use_norm)
-    ln = nj.shape[0]
+    return [f for f in fast_rows(env, cor, nj.shape[0], fs, starts) if f is not None]
+
+
+def fast_rows(env: torch.Tensor, cor: torch.Tensor, ln: int, fs: float,
+              starts) -> list:
+    """`_fast_reduce`'s reduction of the windows' envelope and sync
+    correlation rows (`ln` the needle's length), one entry a window: its
+    (sync, quality, time sync or None), or None without a detection."""
     n = cor.shape[1]
     thr, _ = peaks.adaptive_threshold(cor, fs, K.NOAA_PEAKHEIGHTWIGGLE)
     mx, am = torch.max(cor, dim=-1)
@@ -429,8 +470,8 @@ def _fast_reduce(batch, nj, offset, fs, use_norm, starts) -> list:
                               ts_start].mean(dim=-1)
     has, p, mx, ts = (t.cpu().numpy() for t in (mx > thr, p, mx, ts))
     return [(int(p[row]) + s0, float(mx[row]),
-             float(ts[row]) if p[row] + 2 * ln < n else None)
-            for row, s0 in enumerate(starts) if has[row]]
+             float(ts[row]) if p[row] + 2 * ln < n else None) if has[row] else None
+            for row, s0 in enumerate(starts)]
 
 
 def _host_walk(batch, nj, offset, fs, use_norm, starts) -> list:

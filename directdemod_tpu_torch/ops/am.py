@@ -47,13 +47,20 @@ def envelope_lowpass(x: torch.Tensor, fs: float, cutoff: float, state=None
 
 
 def envelope_blocked(x: torch.Tensor, block: int) -> torch.Tensor:
-    """Envelope per `block`-sample block of a 1-D signal, no cross-block
-    state."""
-    n = x.shape[0]
+    """Envelope per `block`-sample block along the last axis, no
+    cross-block state. Leading axes are channels, each row blocked as a
+    1-D call blocks it: all rows' full blocks in one batched FFT, each
+    row's remainder an FFT of its own (a batch of rows rounds an FFT of
+    some lengths otherwise than one row does)."""
+    n = x.shape[-1]
+    lead = x.shape[:-1]
     nfull = n // block
     out = []
     if nfull:
-        out.append(envelope(x[: nfull * block].reshape(nfull, block)).reshape(-1))
+        full = x[..., : nfull * block].reshape(lead + (nfull, block))
+        out.append(envelope(full).reshape(lead + (nfull * block,)))
     if n - nfull * block:
-        out.append(envelope(x[nfull * block:]))
-    return out[0] if len(out) == 1 else torch.cat(out)
+        rest = x[..., nfull * block:]
+        out.append(envelope(rest) if not lead else torch.stack(
+            [envelope(r) for r in rest.reshape(-1, rest.shape[-1])]).reshape(rest.shape))
+    return out[0] if len(out) == 1 else torch.cat(out, dim=-1)

@@ -67,11 +67,16 @@ def norm_correlate(haystack: torch.Tensor, needle: torch.Tensor) -> torch.Tensor
 
 def norm_correlate_multi(haystack: torch.Tensor,
                          needles: torch.Tensor) -> torch.Tensor:
-    """`norm_correlate` of one 1-D haystack against a (k, L) stack of
-    equal-length real needles, sharing the haystack FFT and the energy term.
-    Returns (k, n)."""
+    """`norm_correlate` of a haystack, (n,) or (C, n), against a (k, L)
+    stack of equal-length real needles, sharing the haystack FFT and the
+    energy term. Returns (k, n), or (C, k, n): a row at a time, as a batch
+    of rows rounds an FFT of some lengths otherwise than one row does."""
     if haystack.is_complex() or needles.is_complex():
         raise ValueError("norm_correlate_multi is real-only")
+    if haystack.dim() > 1:
+        rows = haystack.reshape(-1, haystack.shape[-1])
+        return torch.stack([norm_correlate_multi(h, needles) for h in rows]
+                           ).reshape(haystack.shape[:-1] + (needles.shape[0], -1))
     k_len = needles.shape[-1]
     n = haystack.shape[-1] + k_len - 1
     m = fft_len(n)
@@ -89,34 +94,36 @@ def norm_correlate_multi_blocked(haystack: torch.Tensor,
                                  needles: torch.Tensor,
                                  blk: int = 1 << 17) -> torch.Tensor:
     """`norm_correlate_multi` by overlap-save: `blk`-wide frames with
-    needle-length halos, every FFT batched over frames. The reference frames
-    this way because one multi-million-point FFT was slow on its device; the
-    port keeps the framing so both compute the same sums in the same
-    blocks, and it bounds the FFT scratch."""
+    needle-length halos, every FFT batched over frames (and over the
+    channels of a (C, n) haystack, each row framed as a 1-D call frames
+    it). The reference frames this way because one multi-million-point FFT
+    was slow on its device; the port keeps the framing so both compute the
+    same sums in the same blocks, and it bounds the FFT scratch."""
     if haystack.is_complex() or needles.is_complex():
         raise ValueError("norm_correlate_multi_blocked is real-only")
     n = haystack.shape[-1]
+    lead = haystack.shape[:-1]
     L = needles.shape[-1]
     if n <= 2 * blk:
         return norm_correlate_multi(haystack, needles)
     halo_l, halo_r = L // 2, (L - 1) // 2
     nb = -(-n // blk)
     ep = torch.nn.functional.pad(haystack, (halo_l, nb * blk - n + halo_r))
-    frames = ep.unfold(0, blk + halo_l + halo_r, blk)      # (nb, blk + L - 1)
+    frames = ep.unfold(-1, blk + halo_l + halo_r, blk)     # (..., nb, blk + L - 1)
     m = fft_len(blk + 2 * (L - 1))
     X = torch.fft.rfft(frames, n=m)
     X2 = torch.fft.rfft(frames * frames, n=m)
     W = torch.fft.rfft(needles.flip(-1), n=m)               # (k, M)
     Wo = torch.fft.rfft(torch.ones(L, dtype=haystack.dtype,
                                    device=haystack.device), n=m)
-    cor_f = torch.fft.irfft(X[None, :, :] * W[:, None, :], n=m)
-    en_f = torch.fft.irfft(X2 * Wo[None, :], n=m)
+    cor_f = torch.fft.irfft(X.unsqueeze(-3) * W[:, None, :], n=m)
+    en_f = torch.fft.irfft(X2 * Wo, n=m)
     # frame-local correlate-'same' output for global p = i*blk + p' sits at
     # conv_full(frame, w_rev)[p' + L - 1]
-    cor = cor_f[..., L - 1: L - 1 + blk].reshape(needles.shape[0], nb * blk)
-    sums = en_f[..., L - 1: L - 1 + blk].reshape(nb * blk)
+    cor = cor_f[..., L - 1: L - 1 + blk].reshape(lead + (needles.shape[0], nb * blk))
+    sums = en_f[..., L - 1: L - 1 + blk].reshape(lead + (1, nb * blk))
     energy = torch.sum(needles * needles, dim=-1, keepdim=True)
-    return cor[:, :n] / torch.sqrt(sums[None, :n] * energy)
+    return cor[..., :n] / torch.sqrt(sums[..., :n] * energy)
 
 
 def apt_needle(sync_bits, samp_rate: float, t_bit: float,

@@ -112,8 +112,17 @@ def ddc_fm_u8_plain(raw: torch.Tensor, taps_rev: torch.Tensor,
     """K1's contract in plain fp32 torch: each output's byte window (an
     `unfold` view) times the (2K, 2C) byte-domain tap matrix, then the
     discriminator. Outputs go in chunks of `_PLAIN_CHUNK` so the window
-    matrix stays small on any capture length."""
+    matrix stays small on any capture length. A bank runs a channel at a
+    time, so that each channel's outputs are those of its one-channel
+    call bit for bit, as K1's are on the card (the CPU rounds a wider
+    matrix product, and a longer discriminator row, otherwise)."""
     c, k = _check(raw, torch.uint8, taps_rev, rot, c_prev, stride, out_len, head)
+    if taps_rev.dim() == 2 and c > 1:
+        outs = [ddc_fm_u8_plain(raw, taps_rev[ch], rot[ch:ch + 1],
+                                c_prev.reshape(c)[ch:ch + 1], stride, out_len, head)
+                for ch in range(c)]
+        return (torch.stack([a for a, _ in outs]),
+                torch.cat([last for _, last in outs]))
     if head is not None:
         raw = torch.cat([head, raw])
     j = int(stride)

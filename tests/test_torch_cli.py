@@ -455,3 +455,111 @@ def test_cli_unknown_decoder_like_jax_cli(noaa_wav, tmp_path, monkeypatch, capsy
         files[name] = sorted(os.listdir(tmp_path / name))
         _drop_handlers(before)
     assert files["port"] == files["jax"] == ["first.png", "log.txt"]
+
+
+BANK_FREQS = (137_620_000, 137_912_500, 137_100_000)    # NOAA-15, -18, -19
+
+
+@pytest.fixture(scope="module")
+def bank_dat(tmp_path_factory):
+    """A 6.25-s capture of three NOAA passes centred at 137.5 MHz (the
+    `noaa_apt_3sat` channels) as a raw .dat file."""
+    from benchmarks.synth import apt_bank
+    with open(os.path.join(ROOT, "benchmarks", "configs", "noaa_apt_3sat.json")) as f:
+        cfg = json.load(f)
+    raw, _ = apt_bank.pass_bytes(12, cfg, 0.05, "cpu", 2 ** 31 + 31)
+    path = str(tmp_path_factory.mktemp("cli_bank") / "bank.dat")
+    raw.numpy().tofile(path)
+    return path
+
+
+def _k1_calls(monkeypatch) -> list:
+    """Count the front end's K1 calls (the plain version on the CPU)."""
+    from directdemod_tpu_torch.ops import ddc
+    calls, orig = [], ddc.ddc_fm_u8
+
+    def counted(*a, **k):
+        calls.append(a[1].shape)
+        return orig(*a, **k)
+    monkeypatch.setattr(ddc, "ddc_fm_u8", counted)
+    return calls
+
+
+def test_cli_noaa_channels_share_one_bank(bank_dat, tmp_path, monkeypatch):
+    """Three `-d noaa` channels of one capture go through one bank: one K1
+    call for the three (one block), the same image files bit for bit, the
+    same report entries (with "bank": 3) and the same sync CSVs (positions
+    equal, qualities within 1e-6: the bank's accurate-sync batches hold
+    other windows) as three one-channel runs."""
+    calls = _k1_calls(monkeypatch)
+    argv = ["-c", "137500000"]
+    for n, f in enumerate(BANK_FREQS):
+        argv += ["-f", str(f), "-d", "noaa", "-o", str(tmp_path / f"bank{n}")]
+    assert main_cpu(argv + ["-sync", "-r", str(tmp_path / "bank.json"), bank_dat]) == 0
+    assert len(calls) == 1 and tuple(calls[0]) == (3, 151)
+    bank = json.load(open(tmp_path / "bank.json"))["channels"]
+    for n, f in enumerate(BANK_FREQS):
+        out = str(tmp_path / f"one{n}")
+        assert main_cpu(["-c", "137500000", "-f", str(f), "-d", "noaa", "-o", out,
+                         "-sync", "-r", out + ".json", bank_dat]) == 0
+        one = json.load(open(out + ".json"))["channels"][0]
+        got = {k: v for k, v in bank[n].items() if k not in TIMINGS}
+        assert got.pop("bank") == 3 and "bank" not in one
+        want = {k: v for k, v in one.items() if k not in TIMINGS}
+        files = got.pop("filesCreated"), want.pop("filesCreated")
+        got.pop("outFileName"), want.pop("outFileName")
+        assert got == want and got["usefulness"] == 1
+        assert [p.replace("bank", "one") for p in files[0]] == files[1]
+        assert files[1] == [out + ".png", out + ".csv"]
+        assert np.array_equal(np.asarray(Image.open(files[0][0])),
+                              np.asarray(Image.open(files[1][0])))
+        cb, co = _csv_columns(files[0][1]), _csv_columns(files[1][1])
+        assert list(cb) == list(co)
+        for col in cb:
+            assert len(cb[col]) == len(co[col]) > 0
+            if col.startswith("quality"):
+                assert np.max(np.abs(np.subtract(cb[col], co[col]))) <= 1e-6
+            elif col.startswith("TimeSync"):
+                assert np.allclose(cb[col], co[col], rtol=1e-5, atol=0)
+            else:
+                assert cb[col] == co[col], col
+    assert len(calls) == 4
+
+
+def test_cli_noaa_channels_of_unlike_bandwidths_decode_one_by_one(bank_dat, tmp_path,
+                                                                 monkeypatch):
+    """NOAA channels of different bandwidths are no bank: a front end
+    each."""
+    calls = _k1_calls(monkeypatch)
+    rep = str(tmp_path / "r.json")
+    assert main_cpu(["-c", "137500000", "-f", str(BANK_FREQS[0]), "-d", "noaa",
+                     "-b", "60000", "-f", str(BANK_FREQS[1]), "-d", "noaa", "-b",
+                     "50000", "-noimage", "-r", rep, bank_dat]) == 0
+    chans = json.load(open(rep))["channels"]
+    assert [tuple(c) for c in calls] == [(1, 151), (1, 151)]
+    assert [c["usefulness"] for c in chans] == [1, 1]
+    assert all("bank" not in c for c in chans)
+
+
+@pytest.mark.parametrize("bandwidths", [["60000", "60000"], ["60000", "50000"]],
+                         ids=["bank", "one_by_one"])
+def test_cli_resident_copies_once_a_run(bank_dat, tmp_path, monkeypatch, bandwidths):
+    """--resident with two channels copies the capture to the device once,
+    whether the channels share a bank or decode one by one."""
+    from directdemod_tpu_torch.io import sources
+    copies, orig = [], sources.resident_copy
+
+    def counted(src, device):
+        copies.append(src.length)
+        return orig(src, device)
+    monkeypatch.setattr(sources, "resident_copy", counted)
+    rep = str(tmp_path / "r.json")
+    argv = ["-c", "137500000"]
+    for f, bw in zip(BANK_FREQS, bandwidths):
+        argv += ["-f", str(f), "-d", "noaa", "-b", bw]
+    assert main_cpu(argv + ["--resident", "-noimage", "-r", rep, bank_dat]) == 0
+    chans = json.load(open(rep))["channels"]
+    assert len(copies) == 1 and copies[0] == os.path.getsize(bank_dat) // 2
+    assert [c["resident"] for c in chans] == [True, True]
+    assert [c["usefulness"] for c in chans] == [1, 1]
+    assert "residentUploadSeconds" in chans[0] and "residentUploadSeconds" not in chans[1]

@@ -632,6 +632,44 @@ def test_noaa_one_block_equals_the_block_plan_on_the_card(dev, monkeypatch,
         assert np.array_equal(a, b) and len(a) > 0
 
 
+def test_noaa_bank_on_the_card_equals_one_channel_decodes(dev):
+    """Three NOAA passes in one capture (the `noaa_apt_3sat` channels, 24
+    lines) held on the card: the bank makes one K1 launch for all channels,
+    and each channel's crude syncs, usefulness and image equal those of a
+    one-channel decode at its offset over the same bytes. The accurate
+    syncs run the same chain in other batches, whose FFT and convolution
+    plans may move a tied correlation maximum by one sample (as two
+    processes' one-channel decodes may differ): positions within one
+    sample, under 2 % of them moved, qualities within 1e-6."""
+    from benchmarks.synth import apt_bank
+    from directdemod_tpu_torch.models.noaa_bank import NoaaBankDecoder
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmarks", "configs", "noaa_apt_3sat.json")) as f:
+        cfg = json.load(f)
+    offsets = [ch["offset_hz"] for ch in cfg["channels"]]
+    raw, _ = apt_bank.pass_bytes(24, cfg, 0.05, dev, 2 ** 31 + 22)
+    before = ddc.LAUNCHES
+    bank = NoaaBankDecoder(sources.DeviceRawSource(raw, FS), offsets, device=dev)
+    assert bank.useful == [1, 1, 1]
+    got = [(ch.get_crude_sync(), ch.get_image(), ch.get_accurate_sync())
+           for ch in bank.channels]
+    assert ddc.LAUNCHES - before == 1
+    moved = total = 0
+    for (crude, img, acc), off in zip(got, offsets):
+        one = NoaaDecoder(sources.DeviceRawSource(raw, FS), off, device=dev)
+        for a, b in zip(crude, one.get_crude_sync()):
+            assert np.array_equal(a, b) and len(a) > 0
+        assert np.array_equal(img, one.get_image())
+        want = one.get_accurate_sync()
+        for i in (0, 4):
+            assert len(acc[i]) == len(want[i]) > 0
+            d = np.abs(np.subtract(acc[i], want[i]))
+            assert d.max() <= 1
+            moved, total = moved + int(np.count_nonzero(d)), total + len(d)
+            assert np.max(np.abs(np.subtract(acc[i + 2], want[i + 2]))) <= 1e-6
+    assert moved <= 0.02 * total, (moved, total)
+
+
 def _psk(kind):
     cls = FuncubeDecoder if kind == "bpsk" else MeteorM2Decoder
     det = cls(sources.ArraySource(np.zeros(16, np.complex64), FS), 0, device="cpu")

@@ -299,6 +299,7 @@ def test_iir_filters_of_one_design_share_a_build(rng):
     while a profiler records, the build one `iir.constants` range."""
     iir.clear_constants()
     x = _t(rng.standard_normal(3 * 4096).astype(np.float32))
+    stages.session_counts()      # end a session an earlier test left behind
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         for _ in range(2):
