@@ -194,19 +194,21 @@ class Afsk1200Decoder(TimedDecoder):
     @staticmethod
     def find_bit_stuffing(bits: np.ndarray) -> np.ndarray:
         """Mark stuffed bits: 1 = stuffed 0 after five 1s, 2 = possible frame
-        end (ref decode_afsk1200.py:354-385). The run of consecutive ones
-        ending before i is i-1 minus the last zero position, so the whole
-        scan is a cummax."""
+        end (ref decode_afsk1200.py:354-385). The mark at i is "bits i-5 ..
+        i-1 set and bit i-6 clear or before the start": five shifted ANDs
+        over the bitstream."""
         bits = np.asarray(bits)
         n = len(bits)
-        if n == 0:
-            return np.zeros(0, dtype=np.int64)
-        idx = np.arange(n)
-        last_zero = np.maximum.accumulate(np.where(bits == 0, idx, -1))
-        run_end = idx - last_zero          # consecutive ones ending AT i
-        run_before = np.concatenate([[0], run_end[:-1]])
-        return np.where(run_before == 5,
-                        np.where(bits == 1, 2, 1), 0).astype(np.int64)
+        mark = np.zeros(n, dtype=bool)
+        if n > 5:
+            ones = bits != 0
+            run5 = ones[:n - 5] & ones[1:n - 4] & ones[2:n - 3] \
+                & ones[3:n - 2] & ones[4:n - 1]
+            mark[5] = run5[0]
+            mark[6:] = run5[1:] & ~ones[:n - 6]
+        out = mark.astype(np.int64)
+        out += mark & (bits == 1)
+        return out
 
     @staticmethod
     def reduce_stuffed_bit(bits, stuffed) -> list:
@@ -216,38 +218,35 @@ class Afsk1200Decoder(TimedDecoder):
     @staticmethod
     def find_flags(bits: np.ndarray) -> np.ndarray:
         """Positions of the 01111110 frame flag (ref
-        decode_afsk1200.py:219-230), vectorized over the bitstream."""
+        decode_afsk1200.py:219-230): eight shifted compares over the
+        bitstream."""
         bits = np.asarray(bits)
-        if len(bits) < 8:
+        n = len(bits)
+        if n < 8:
             return np.empty(0, dtype=np.int64)
-        win = np.lib.stride_tricks.sliding_window_view(bits, 8)
-        flag = np.asarray([0, 1, 1, 1, 1, 1, 1, 0])
-        return np.flatnonzero(np.all(win == flag, axis=-1))
+        at = (bits[:n - 7] == 0) & (bits[7:] == 0)
+        for k in range(1, 7):
+            at &= bits[k:n - 7 + k] == 1
+        return np.flatnonzero(at)
 
     @staticmethod
     def parse_ax25(msg_bits) -> Ax25Frame:
         """AX.25 header/payload parse (ref decode_afsk1200.py:291-328):
-        bytes are LSB-first on the wire; header runs until a byte with its
-        extension (last transmitted) bit set; 7-bit chars in the header."""
-        header_chars = []
-        payload_chars = []
-        in_header = True
-        for i in range(0, len(msg_bits) - 7, 8):
-            byte = msg_bits[i:i + 8]
-            msb_first = "".join(str(int(b)) for b in byte[::-1])
-            if in_header:
-                header_chars.append(chr(int("0" + msb_first[:7], 2)))
-                if msb_first[-1] == "1":
-                    in_header = False
-            else:
-                payload_chars.append(chr(int(msb_first, 2)))
-        header = "".join(header_chars)
-        payload = "".join(payload_chars)
+        bytes are LSB-first on the wire (a trailing partial byte is
+        dropped); the header runs to the first byte with its extension
+        (first transmitted) bit set, or to the end, its chars the bytes'
+        upper seven bits; the payload's chars are its bytes."""
+        bits = np.asarray(msg_bits, dtype=np.uint8)
+        data = np.packbits(bits[:len(bits) // 8 * 8], bitorder="little")
+        ends = np.flatnonzero(data & 1)
+        h = int(ends[0]) + 1 if len(ends) else len(data)
+        header = (data[:h] >> 1).tobytes().decode("latin-1")
+        payload = data[h:].tobytes()
         return Ax25Frame(
             destination=header[:7], source=header[7:14], path=header[14:],
-            control=ord(payload[0]) if len(payload) > 0 else None,
-            protocol=ord(payload[1]) if len(payload) > 1 else None,
-            info=payload[2:], start_bit=0)
+            control=payload[0] if len(payload) > 0 else None,
+            protocol=payload[1] if len(payload) > 1 else None,
+            info=payload[2:].decode("latin-1"), start_bit=0)
 
     # ------------------------------------------------------------- top level
     def get_frames(self) -> list[Ax25Frame]:
@@ -296,31 +295,39 @@ class Afsk1200Decoder(TimedDecoder):
 
     def _frames_from_nrzi(self, nrzi: np.ndarray) -> list[Ax25Frame]:
         """NRZI -> bits -> flags -> unstuffed, CRC-checked AX.25 frames
-        (ref decode_afsk1200.py:209-289)."""
+        (ref decode_afsk1200.py:209-289), over the whole stream at once:
+        the segment after flag f (its bits [f + 8, next flag)) unstuffed is
+        a slice of the stream's unstuffed bits, its length a difference of
+        a cumulative sum; the segments that pass the length tests are
+        packed to bytes and CRC-checked in one batch."""
         if len(nrzi) == 0:
             return []
         bits = self.decode_nrzi(nrzi)
-        stuffed = self.find_bit_stuffing(bits)
+        keep = self.find_bit_stuffing(bits) == 0
         flags = self.find_flags(bits)
         self._count("framing.bauds", len(nrzi))
         self._count("framing.flags", len(flags))
-        frames, checked = [], 0
-        for fi in range(len(flags) - 1):
-            seg = self.reduce_stuffed_bit(
-                bits[flags[fi] + 8: flags[fi + 1]],
-                stuffed[flags[fi] + 8: flags[fi + 1]])
-            msg = seg[:-16]
-            if len(seg) % 8 == 0 and len(msg) > 16 * 8:
-                checked += 1
-                sent = "".join(str(int(b)) for b in msg)
-                got = "".join(str(int(b)) for b in seg[-16:])
-                if crc.fcs_crc16_bits(sent) == got:
-                    frame = self.parse_ax25(msg)
-                    frame.start_bit = int(flags[fi])
-                    frames.append(frame)
-                    self._useful = 1
-                    log.info("APRS frame at bit %d: %s", flags[fi], frame.info)
-        self._count("framing.crc_checks", checked)
+        kept = np.concatenate([[0], np.cumsum(keep)])     # kept bits before i
+        unstuffed = bits[keep].astype(np.uint8)
+        # flags closer than 8 bits give a negative length: the length test
+        # fails it, as it fails the empty slice
+        lo = kept[flags[:-1] + 8]
+        n = kept[flags[1:]] - lo
+        seg = np.flatnonzero((n % 8 == 0) & (n - 16 > 16 * 8))
+        lo, n = lo[seg], n[seg]
+        self._count("framing.crc_checks", len(seg))
+        self._count("framing.crc_batches", int(len(seg) > 0))
+        # the checked segments back to back: each is whole bytes
+        idx = np.repeat(lo - np.cumsum(n) + n, n) + np.arange(n.sum())
+        data = np.packbits(unstuffed[idx], bitorder="little")
+        frames = []
+        for j in np.flatnonzero(crc.fcs_crc16_check(data, n // 8)):
+            start = int(flags[seg[j]])
+            frame = self.parse_ax25(unstuffed[lo[j]:lo[j] + n[j] - 16])
+            frame.start_bit = start
+            frames.append(frame)
+            self._useful = 1
+            log.info("APRS frame at bit %d: %s", start, frame.info)
         self._count("framing.frames", len(frames))
         return frames
 

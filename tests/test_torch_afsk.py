@@ -204,6 +204,153 @@ def test_bit_layer_equals_jax():
     assert Afsk1200Decoder.parse_ax25(msg).__dict__ == J.parse_ax25(msg).__dict__
 
 
+# ----------------------------------------------------------------- framing against the per-bit loop
+
+def oracle_frames(nrzi) -> tuple[list, dict]:
+    """The decoder's framing as one segment at a time, one bit at a time
+    (the port's loop before the whole-stream version), over the JAX
+    package's bit layer, CRC and parse: (frames, counts)."""
+    J = jafsk.Afsk1200Decoder
+    if len(nrzi) == 0:
+        return [], {}
+    bits = J.decode_nrzi(nrzi)
+    stuffed = J.find_bit_stuffing(bits)
+    flags = J.find_flags(bits)
+    frames, checked = [], 0
+    for fi in range(len(flags) - 1):
+        seg = J.reduce_stuffed_bit(bits[flags[fi] + 8: flags[fi + 1]],
+                                   stuffed[flags[fi] + 8: flags[fi + 1]])
+        msg = seg[:-16]
+        if len(seg) % 8 == 0 and len(msg) > 16 * 8:
+            checked += 1
+            sent = "".join(str(int(b)) for b in msg)
+            got = "".join(str(int(b)) for b in seg[-16:])
+            if jcrc.fcs_crc16_bits(sent) == got:
+                frame = J.parse_ax25(msg)
+                frame.start_bit = int(flags[fi])
+                frames.append(frame)
+    return frames, {"afsk.framing.bauds": len(nrzi), "afsk.framing.flags": len(flags),
+                    "afsk.framing.crc_checks": checked,
+                    "afsk.framing.frames": len(frames)}
+
+
+def _nrzi(bits) -> np.ndarray:
+    """NRZI levels (+/-1) whose decode is `bits` after the first (a 0
+    flips the level)."""
+    flips = np.cumsum(1 - np.asarray(bits, np.int64)[1:]) % 2
+    return np.concatenate([[1.0], 1.0 - 2.0 * flips])
+
+
+def _with_fcs(data: bytes) -> list:
+    """Wire bits of `data` and its FCS, unstuffed."""
+    bits = [(byte >> i) & 1 for byte in data for i in range(8)]
+    return bits + [int(c) for c in crc.fcs_crc16_bits(bits)]
+
+
+def _noise(rng, n) -> list:
+    return [int(b) for b in rng.integers(0, 2, n)]
+
+
+def _stream(case, rng) -> tuple[list, int]:
+    """Wire bits of one case and the frames the oracle finds in it."""
+    if case == "planted":                   # '~' and DEL stuff inside frames
+        infos = ["~~\x7f stuffed ~", "plain one", "\x7f\x7f\x7f\x7f"]
+        wire = []
+        for info in infos:
+            wire += (_noise(rng, 200) + FLAGS * 2 + stuff_bits(make_ax25_frame(info=info))
+                     + FLAGS * 3)
+        return wire, 3
+    if case == "adjacent_flags":            # back to back, and sharing a 0
+        overlap = FLAGS + FLAGS[1:] + FLAGS[1:]
+        return (FLAGS * 4 + overlap + stuff_bits(make_ax25_frame(info="between"))
+                + overlap + FLAGS * 2), 1
+    if case == "lengths":                   # 144 and 152 bits, not whole bytes
+        wire = list(FLAGS)
+        for body in (bytes((rng.integers(0, 128, 16) * 2).tolist()),  # 144 bits
+                     bytes((rng.integers(0, 128, 17) * 2).tolist())):  # 152
+            wire += stuff_bits(_with_fcs(body)) + FLAGS
+        wire += stuff_bits(_noise(rng, 150)) + FLAGS
+        wire += stuff_bits(make_ax25_frame(info="x")[:-3]) + FLAGS
+        return wire, 1
+    if case == "noise":                     # flags by chance, one forced CRC
+        forced = stuff_bits(_with_fcs(bytes(rng.integers(0, 256, 40).tolist())))
+        return _noise(rng, 6000) + FLAGS + forced + FLAGS + _noise(rng, 6000), 1
+    if case == "ends_mid_frame":
+        frame = stuff_bits(make_ax25_frame(info="cut short"))
+        return (FLAGS * 2 + stuff_bits(make_ax25_frame(info="whole")) + FLAGS * 2
+                + frame[:len(frame) // 2]), 1
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["planted", "adjacent_flags", "lengths", "noise",
+                                  "ends_mid_frame", 0, 1, 5, 7])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_framing_equals_per_bit_oracle(case, seed):
+    """The whole-stream framing against the per-bit loop: the same frames
+    (field for field, in order, with the same start bits) and the same
+    four counters."""
+    rng = np.random.default_rng([seed, len(str(case))])
+    if isinstance(case, int):               # 0 and fewer than 8 bauds
+        nrzi, found = np.sign(rng.standard_normal(case)), 0
+    else:
+        wire, found = _stream(case, rng)
+        nrzi = _nrzi([1] + wire)
+    want, counts = oracle_frames(nrzi)
+    dec = Afsk1200Decoder(ArraySource(np.zeros(10, np.complex64), FS), OFF,
+                          device="cpu")
+    got = dec._frames_from_nrzi(nrzi)
+    assert [f.__dict__ for f in got] == [f.__dict__ for f in want]
+    assert len(want) == found and dec.useful == int(found > 0)
+    assert {k: v for k, v in dec.counters.items()
+            if k != "afsk.framing.crc_batches"} == counts
+    assert dec.counters.get("afsk.framing.crc_batches", 0) == \
+        int(counts.get("afsk.framing.crc_checks", 0) > 0)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_batched_crc_equals_per_segment(seed):
+    """`crc.fcs_crc16_check` over byte-aligned segments of 0, 1, 2, 17 and
+    300 bytes, some with their FCS right, in one batch and one at a time,
+    against the string check of `fcs_crc16_bits` and the JAX package's."""
+    rng = np.random.default_rng(seed)
+    segs = []
+    for nbytes in (0, 1, 2, 17, 300, 2, 17, 300, 17):
+        data = rng.integers(0, 256, nbytes).astype(np.uint8)
+        if nbytes >= 2 and rng.random() < 0.6:
+            bits = np.unpackbits(data[:-2], bitorder="little")
+            fcs = int(crc.fcs_crc16_bits(bits)[::-1], 2)
+            data[-2:] = [fcs & 0xFF, fcs >> 8]
+        segs.append(data)
+    segs[2][:] = 0                           # the FCS of no bytes
+    want = []
+    for data in segs:
+        s = "".join(str(b) for b in np.unpackbits(data, bitorder="little"))
+        ours = len(s) >= 16 and crc.fcs_crc16_bits(s[:-16]) == s[-16:]
+        theirs = len(s) >= 16 and jcrc.fcs_crc16_bits(s[:-16]) == s[-16:]
+        assert ours == theirs
+        want.append(ours)
+    counts = [len(d) for d in segs]
+    got = crc.fcs_crc16_check(np.concatenate(segs), counts)
+    assert got.tolist() == want and want[2] and not all(want)
+    assert [bool(crc.fcs_crc16_check(d, [len(d)])[0]) for d in segs] == want
+    assert crc.fcs_crc16_check(np.zeros(0, np.uint8), []).tolist() == []
+
+
+@pytest.mark.parametrize("msg", [
+    make_ax25_frame(info="port parity")[:-16],
+    make_ax25_frame(info="\x7f~ all 256: \xff")[:-16],
+    [0, 1, 0, 0, 0, 0, 1, 0] * 20,          # no byte ends the header
+    [1] * 8 + [0, 0, 0, 0, 0, 1, 1, 0],     # the header is one byte
+    make_ax25_frame(info="")[:-16][:-5],    # a trailing partial byte
+    [],
+])
+def test_parse_ax25_equals_jax(msg):
+    assert Afsk1200Decoder.parse_ax25(msg).__dict__ == \
+        jafsk.Afsk1200Decoder.parse_ax25(msg).__dict__
+    assert Afsk1200Decoder.parse_ax25(np.asarray(msg, bool)).__dict__ == \
+        Afsk1200Decoder.parse_ax25(msg).__dict__
+
+
 def test_window_means_match_jax():
     rng = np.random.default_rng(12)
     bf = rng.standard_normal(40_000).astype(np.float32)

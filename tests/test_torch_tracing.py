@@ -9,8 +9,10 @@ candidate counter equals the samples above the thresholds of the one
 its rows counter the two rows that call grouped and its sync counter the
 syncs it kept; a Funcube decode on the block loop opens one
 `psk.pass2.symbols` span a block and one `psk.pass2.correlate` span a
-counted device batch (`psk.pass2.batches`, at most one a block); with no
-profiler the session's tally stays as it was;
+counted device batch (`psk.pass2.batches`, at most one a block); an
+AFSK decode counts one batched CRC pass (`afsk.framing.crc_batches`) where
+any segment is checked, none where none is, and as many checks as the
+per-bit framing loop; with no profiler the session's tally stays as it was;
 two sessions keep two tallies; a stage whose body raises closes its range
 and keeps its time.
 """
@@ -23,10 +25,12 @@ import torch
 import chip_smoke as cs
 from directdemod_tpu_torch.io.sources import DeviceRawSource
 from directdemod_tpu_torch.models import stages
+from directdemod_tpu_torch.models.afsk1200 import Afsk1200Decoder
 from directdemod_tpu_torch.models.funcube import FuncubeDecoder
 from directdemod_tpu_torch.models.noaa import NoaaDecoder
 from directdemod_tpu_torch.ops import peaks
 from tests.apt_synth import FS, synthesize
+from tests.test_torch_afsk import oracle_frames
 
 torch.set_num_threads(1)
 
@@ -165,6 +169,32 @@ def test_funcube_block_loop_spans(funcube_traced):
     for child in PSK_CHILDREN:
         for r in _named(ranges, child):
             assert _inside(r, pass2), child
+
+
+@pytest.mark.parametrize("seconds,batches", [(3.0, 1), (0.2, 0)])
+def test_afsk_crc_batches_counter(seconds, batches):
+    """A decode of frames (3 s) and one of flags alone (0.2 s: no frame
+    fits): one CRC batch where any segment is checked, with the per-bit
+    loop's checks and frames, and none where none is."""
+    raw, infos = cs.synth_aprs_bytes(seconds, "cpu", seed=3)
+    dec = Afsk1200Decoder(DeviceRawSource(raw, cs.FS), cs.APRS_OFFSET_HZ, device="cpu")
+    levels = []
+    frames_from = dec._frames_from_nrzi
+
+    def keeping(nrzi):
+        levels.append(nrzi)
+        return frames_from(nrzi)
+
+    dec._frames_from_nrzi = keeping
+    with _profile():
+        frames = dec.get_frames()
+    tally = stages.session_counts()
+    want, counts = oracle_frames(levels[0])
+    assert [f.info for f in frames] == [f.info for f in want] == infos
+    assert tally["afsk.framing.crc_checks"] == counts["afsk.framing.crc_checks"]
+    assert tally["afsk.framing.crc_batches"] == batches
+    assert (counts["afsk.framing.crc_checks"] > 0) == (batches == 1)
+    assert dec.counters["afsk.framing.crc_batches"] == batches
 
 
 def test_no_profiler_leaves_the_tally(noaa_traced):
