@@ -316,7 +316,6 @@ class Afsk1200Decoder(TimedDecoder):
         seg = np.flatnonzero((n % 8 == 0) & (n - 16 > 16 * 8))
         lo, n = lo[seg], n[seg]
         self._count("framing.crc_checks", len(seg))
-        self._count("framing.crc_batches", int(len(seg) > 0))
         # the checked segments back to back: each is whole bytes
         idx = np.repeat(lo - np.cumsum(n) + n, n) + np.arange(n.sum())
         data = np.packbits(unstuffed[idx], bitorder="little")

@@ -97,7 +97,8 @@ def image_stage(audio: torch.Tensor, bp, am_block: int, strip_len: int,
     pixels with the per-pixel median and the sync-train head. Returns host
     (probe, strips_a, strips_b, mats_a, mats_b); mats map a line to
     (median_row (unit,), head (_SYNC_BITS, k)). `env`: the band-passed
-    envelope when it is computed already (the mesh path)."""
+    envelope when it is computed already (the mesh path). The group loop
+    is the range `noaa.image.lines.groups`."""
     if env is None:
         env = am_ops.envelope_blocked(bp.zero_phase(audio.float()), am_block)
     kk = env.shape[0] // num_pixels
@@ -123,18 +124,19 @@ def image_stage(audio: torch.Tensor, bp, am_block: int, strip_len: int,
         # zero-length lines instead of a negative resample size
         groups.setdefault(max(e - s, 0), []).append(li)
     mats: dict[int, tuple] = {}
-    for ln, members in groups.items():
-        k = ln // unit
-        if k == 0:
-            for li in members:
-                mats[li] = (np.zeros(0), np.zeros((_SYNC_BITS, 0)))
-            continue
-        rows = _gather(env, [merged[li][0] for li in members], ln)
-        m = rs.fft_resample(rows, k * unit).reshape(len(members), unit, k)
-        med = median(m).cpu().numpy()
-        head = m[:, :_SYNC_BITS, :].cpu().numpy()
-        for row, li in enumerate(members):
-            mats[li] = (med[row], head[row])
+    with span("noaa.image.lines.groups"):
+        for ln, members in groups.items():
+            k = ln // unit
+            if k == 0:
+                for li in members:
+                    mats[li] = (np.zeros(0), np.zeros((_SYNC_BITS, 0)))
+                continue
+            rows = _gather(env, [merged[li][0] for li in members], ln)
+            m = rs.fft_resample(rows, k * unit).reshape(len(members), unit, k)
+            med = median(m).cpu().numpy()
+            head = m[:, :_SYNC_BITS, :].cpu().numpy()
+            for row, li in enumerate(members):
+                mats[li] = (med[row], head[row])
     na = len(spans_a)
     return (probe, strips(spans_a), strips(spans_b),
             {i: mats[i] for i in range(na)},

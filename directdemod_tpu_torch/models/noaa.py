@@ -38,7 +38,7 @@ from ..ops import design, fir, fm as fm_ops, iir, peaks, resample as rs
 from ..ops import unpack
 from ..utils.profiling import Profiler
 from .frontend import DdcFm, DdcFmStream
-from .stages import TimedDecoder
+from .stages import TimedDecoder, span
 
 log = logging.getLogger(__name__)
 
@@ -468,7 +468,9 @@ def fast_rows(env: torch.Tensor, cor: torch.Tensor, ln: int, fs: float,
     ts_start = torch.clamp(p + ln, 0, n - ln)
     ts = env.unfold(1, ln, 1)[torch.arange(env.shape[0], device=env.device),
                               ts_start].mean(dim=-1)
-    has, p, mx, ts = (t.cpu().numpy() for t in (mx > thr, p, mx, ts))
+    # the host waits here for the batch's filters and correlations
+    with span("noaa.accurate_sync.copy"):
+        has, p, mx, ts = (t.cpu().numpy() for t in (mx > thr, p, mx, ts))
     return [(int(p[row]) + s0, float(mx[row]),
              float(ts[row]) if p[row] + 2 * ln < n else None) if has[row] else None
             for row, s0 in enumerate(starts)]

@@ -593,7 +593,8 @@ class PskSyncDetector(TimedDecoder):
                                      self._anchors(anch_cache, b - a))
                              for a, b in plan_blocks(e - s, self.block_size)]
                     x = parts[0] if len(parts) == 1 else torch.cat(parts)
-                x_f, lp_state = lp.apply(x, lp_state)
+                with self._span("frontend.lowpass"):
+                    x_f, lp_state = lp.apply(x, lp_state)
                 del x
             with self._stage("symbol_scan"):
                 if self.n_segments > 1:

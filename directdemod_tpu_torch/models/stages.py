@@ -14,28 +14,66 @@ copied, correlations run), always. While a profiler records, each count is
 also added to the session's tally (`session_counts()`), which restarts
 with each session. Code below the decoders (`ops/iir`'s block constants)
 adds to the tally alone through `count()`.
+
+Python's garbage collector: while a profiler records, each collection is
+the range `host.gc`, a child of whatever range is open. The hook goes into
+`gc.callbacks` at the first span, stage, count or tally read that finds a
+profiler recording, and comes out at the first that finds none; with no
+profiler it is never there, and one left in after a session opens no range.
+
+`span_names()` names the ranges the program opened in the session, so a
+reader of the trace tells them from ranges opened around the program.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import time
 
 import torch
 
 from ..device import resolve
 
-# the tally of the process's profiler session (`session_counts`)
-_session = {"recording": False, "counts": {}}
+# the tally of the process's profiler session (`session_counts`), the
+# names of the ranges the program opened in it (`span_names`) and the range
+# of the collection in progress (`_gc_hook`)
+_session = {"recording": False, "counts": {}, "names": set(), "gc": None}
 
 
 def _recording() -> bool:
     """Whether a profiler records in this process now (`torch.profiler`,
-    `utils.profiling.trace`, `torch.autograd.profiler.emit_nvtx`)."""
+    `utils.profiling.trace`, `torch.autograd.profiler.emit_nvtx`). A call
+    that finds a session starting restarts the tally and the names and
+    puts the GC hook in; one that finds it ended takes the hook out."""
     on = bool(torch.autograd.profiler._is_profiler_enabled)
-    if on and not _session["recording"]:
-        _session["counts"] = {}
-    _session["recording"] = on
+    if on != _session["recording"]:
+        if on:
+            _session["counts"] = {}
+            _session["names"] = set()
+            if _gc_hook not in gc.callbacks:
+                gc.callbacks.append(_gc_hook)
+        elif _gc_hook in gc.callbacks:
+            gc.callbacks.remove(_gc_hook)
+        _session["recording"] = on
     return on
+
+
+def _gc_hook(phase: str, info: dict) -> None:
+    """A `gc.callbacks` entry: the collection as the range `host.gc`,
+    opened at its "start" and closed at its "stop", while a profiler
+    records."""
+    if phase == "start":
+        # `_recording` only while one records: it then leaves
+        # `gc.callbacks`, which the collector is walking, as it is
+        if torch.autograd.profiler._is_profiler_enabled and _recording():
+            _session["names"].add("host.gc")
+            rf = torch.profiler.record_function("host.gc")
+            rf.__enter__()
+            _session["gc"] = rf
+        return
+    rf, _session["gc"] = _session["gc"], None
+    if rf is not None:
+        rf.__exit__(None, None, None)
 
 
 def session_counts() -> dict:
@@ -55,8 +93,17 @@ def span(name: str):
     if not _recording():
         yield
         return
+    _session["names"].add(name)
     with torch.profiler.record_function(name):
         yield
+
+
+def span_names() -> set:
+    """The names of the ranges the program opened (`span`, `host.gc`)
+    while the current profiler session records, or the last session's once
+    it has stopped; restarted with the tally (`session_counts`)."""
+    _recording()
+    return set(_session["names"])
 
 
 def count(name: str, n: int) -> None:

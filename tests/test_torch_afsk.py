@@ -285,10 +285,11 @@ def _stream(case, rng) -> tuple[list, int]:
 @pytest.mark.parametrize("case", ["planted", "adjacent_flags", "lengths", "noise",
                                   "ends_mid_frame", 0, 1, 5, 7])
 @pytest.mark.parametrize("seed", [0, 1])
-def test_framing_equals_per_bit_oracle(case, seed):
+def test_framing_equals_per_bit_oracle(case, seed, monkeypatch):
     """The whole-stream framing against the per-bit loop: the same frames
     (field for field, in order, with the same start bits) and the same
-    four counters."""
+    four counters, from one CRC pass (`crc.fcs_crc16_check`) over every
+    checked segment, none for an empty stream."""
     rng = np.random.default_rng([seed, len(str(case))])
     if isinstance(case, int):               # 0 and fewer than 8 bauds
         nrzi, found = np.sign(rng.standard_normal(case)), 0
@@ -298,13 +299,19 @@ def test_framing_equals_per_bit_oracle(case, seed):
     want, counts = oracle_frames(nrzi)
     dec = Afsk1200Decoder(ArraySource(np.zeros(10, np.complex64), FS), OFF,
                           device="cpu")
+    passes = []
+    check = crc.fcs_crc16_check
+
+    def counting(data, seg_counts):
+        passes.append(len(seg_counts))
+        return check(data, seg_counts)
+
+    monkeypatch.setattr(crc, "fcs_crc16_check", counting)
     got = dec._frames_from_nrzi(nrzi)
     assert [f.__dict__ for f in got] == [f.__dict__ for f in want]
     assert len(want) == found and dec.useful == int(found > 0)
-    assert {k: v for k, v in dec.counters.items()
-            if k != "afsk.framing.crc_batches"} == counts
-    assert dec.counters.get("afsk.framing.crc_batches", 0) == \
-        int(counts.get("afsk.framing.crc_checks", 0) > 0)
+    assert dec.counters == counts
+    assert passes == ([counts.get("afsk.framing.crc_checks", 0)] if len(nrzi) else [])
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

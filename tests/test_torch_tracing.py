@@ -10,13 +10,23 @@ its rows counter the two rows that call grouped and its sync counter the
 syncs it kept; a Funcube decode on the block loop opens one
 `psk.pass2.symbols` span a block and one `psk.pass2.correlate` span a
 counted device batch (`psk.pass2.batches`, at most one a block); an
-AFSK decode counts one batched CRC pass (`afsk.framing.crc_batches`) where
-any segment is checked, none where none is, and as many checks as the
-per-bit framing loop; with no profiler the session's tally stays as it was;
-two sessions keep two tallies; a stage whose body raises closes its range
-and keeps its time.
+AFSK decode runs one CRC pass (`ops.crc.fcs_crc16_check`) over as many
+segments as the per-bit framing loop checks, whether or not any is; with
+no profiler the session's tally stays as it was; two sessions keep two
+tallies; a stage whose body raises closes its range
+and keeps its time. Child ranges: one `psk.frontend.lowpass` a block inside
+`psk.frontend`; `noaa.image.lines.groups` inside `noaa.image.lines` (in the
+bank inside `noaa_bank.image`); one `noaa.accurate_sync.copy` a batch
+inside `noaa.accurate_sync` (in the bank inside `noaa_bank.accurate_sync`),
+as many as the accurate sync's batches of windows; every resample of the
+image's line groups inside `noaa.image.lines.groups`. The collector: a
+`gc.collect()` in a session is one `host.gc` range and no count; with no
+profiler no hook is in `gc.callbacks`, and one left by a session records
+nothing and goes at the next call.
 """
+import gc
 import json
+import os
 
 import numpy as np
 import pytest
@@ -24,15 +34,21 @@ import torch
 
 import chip_smoke as cs
 from directdemod_tpu_torch.io.sources import DeviceRawSource
-from directdemod_tpu_torch.models import stages
+from directdemod_tpu_torch.models import apt, noaa, stages
 from directdemod_tpu_torch.models.afsk1200 import Afsk1200Decoder
 from directdemod_tpu_torch.models.funcube import FuncubeDecoder
-from directdemod_tpu_torch.models.noaa import NoaaDecoder
-from directdemod_tpu_torch.ops import peaks
+from directdemod_tpu_torch.models.noaa import WINDOW_GROUP, NoaaDecoder
+from directdemod_tpu_torch.ops import crc, peaks, resample as rs
+from benchmarks.synth import apt_bank
+from directdemod_tpu_torch.models.noaa_bank import NoaaBankDecoder
 from tests.apt_synth import FS, synthesize
 from tests.test_torch_afsk import oracle_frames
 
 torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the test's own range around each `ops.resample.fft_resample` call
+PROBE = "test.fft_resample"
 
 NOAA_STAGES = {"fm_frontend", "crude_sync", "image", "accurate_sync"}
 # child span -> its parent stage's range
@@ -89,14 +105,31 @@ def noaa_traced(tmp_path_factory):
     """The decode under a profiler, `group_peaks_dense` wrapped to count
     the samples above the thresholds it is given."""
     iq, _ = synthesize(n_lines=12, snr_db=20)
-    returned = []
-    orig = peaks.group_peaks_dense
+    returned, images, windows = [], [], []
+    orig, image_stage = peaks.group_peaks_dense, apt.image_stage
+    starts, resample = noaa.window_starts, rs.fft_resample
 
     def counting(cor, threshold, min_dist):
         returned.append(int((cor > threshold.reshape(-1, 1)).sum()))
         return orig(cor, threshold, min_dist)
 
+    def keeping(*args):
+        images.append(args)
+        return image_stage(*args)
+
+    def windowing(*args):
+        out = starts(*args)
+        windows.append(len(out))
+        return out
+
+    def probed(*args, **kw):
+        with torch.profiler.record_function(PROBE):
+            return resample(*args, **kw)
+
     peaks.group_peaks_dense = counting
+    apt.image_stage = keeping
+    noaa.window_starts = windowing
+    rs.fft_resample = probed
     try:
         dec = NoaaDecoder(DeviceRawSource(_raw(iq), FS), 30000, device="cpu")
         with _profile() as prof:
@@ -105,8 +138,12 @@ def noaa_traced(tmp_path_factory):
             dec.get_accurate_sync()
     finally:
         peaks.group_peaks_dense = orig
-    tally = stages.session_counts()
-    return {"dec": dec, "returned": returned, "tally": tally,
+        apt.image_stage = image_stage
+        noaa.window_starts = starts
+        rs.fft_resample = resample
+    tally, names = stages.session_counts(), stages.span_names()
+    return {"dec": dec, "returned": returned, "tally": tally, "images": images,
+            "windows": windows, "names": names,
             "ranges": _ranges(prof, tmp_path_factory.mktemp("noaa") / "t.json")}
 
 
@@ -172,29 +209,36 @@ def test_funcube_block_loop_spans(funcube_traced):
 
 
 @pytest.mark.parametrize("seconds,batches", [(3.0, 1), (0.2, 0)])
-def test_afsk_crc_batches_counter(seconds, batches):
+def test_afsk_crc_batches_counter(seconds, batches, monkeypatch):
     """A decode of frames (3 s) and one of flags alone (0.2 s: no frame
-    fits): one CRC batch where any segment is checked, with the per-bit
-    loop's checks and frames, and none where none is."""
+    fits): one CRC pass a decode over the per-bit loop's checks, which
+    are some (`batches` 1) or none (0), and the loop's frames."""
     raw, infos = cs.synth_aprs_bytes(seconds, "cpu", seed=3)
     dec = Afsk1200Decoder(DeviceRawSource(raw, cs.FS), cs.APRS_OFFSET_HZ, device="cpu")
-    levels = []
+    levels, passes = [], []
     frames_from = dec._frames_from_nrzi
+    check = crc.fcs_crc16_check
 
     def keeping(nrzi):
         levels.append(nrzi)
         return frames_from(nrzi)
 
+    def counting(data, seg_counts):
+        passes.append(len(seg_counts))
+        return check(data, seg_counts)
+
     dec._frames_from_nrzi = keeping
+    monkeypatch.setattr(crc, "fcs_crc16_check", counting)
     with _profile():
         frames = dec.get_frames()
     tally = stages.session_counts()
     want, counts = oracle_frames(levels[0])
     assert [f.info for f in frames] == [f.info for f in want] == infos
     assert tally["afsk.framing.crc_checks"] == counts["afsk.framing.crc_checks"]
-    assert tally["afsk.framing.crc_batches"] == batches
+    assert passes == [counts["afsk.framing.crc_checks"]]
     assert (counts["afsk.framing.crc_checks"] > 0) == (batches == 1)
-    assert dec.counters["afsk.framing.crc_batches"] == batches
+    assert "afsk.framing.crc_batches" not in tally
+    assert "afsk.framing.crc_batches" not in dec.counters
 
 
 def test_no_profiler_leaves_the_tally(noaa_traced):
@@ -239,3 +283,118 @@ def test_a_stage_that_raises_closes_its_range(tmp_path):
     assert _inside(inner, [boom]) and after[0] >= boom[1]
     assert set(toy.stage_seconds) == {"boom", "after"}
     assert toy.stage_seconds["boom"] >= 0.0
+
+
+def test_noaa_groups_and_copy_ranges_nest(noaa_traced):
+    """One `noaa.image.lines.groups` range inside `noaa.image.lines`, one
+    `noaa.accurate_sync.copy` range a batch inside `noaa.accurate_sync`,
+    and `span_names()` names every range of the trace but the test's own
+    (the program opened them all)."""
+    ranges, windows = noaa_traced["ranges"], noaa_traced["windows"]
+    (groups,) = _named(ranges, "noaa.image.lines.groups")
+    assert _inside(groups, _named(ranges, "noaa.image.lines"))
+    copies = _named(ranges, "noaa.accurate_sync.copy")
+    # A and B: a batch or more each
+    assert len(copies) == sum(-(-n // WINDOW_GROUP) for n in windows) >= 2
+    for r in copies:
+        assert _inside(r, _named(ranges, "noaa.accurate_sync"))
+    assert noaa_traced["names"] == {n for n, _, _ in ranges} - {PROBE}
+
+
+def test_noaa_image_groups_hold_every_resample(noaa_traced):
+    """Each line length of a resampled width (a unit or more) is one
+    `fft_resample` call, and each sits inside `noaa.image.lines.groups`;
+    no resample of the front end's falls in it."""
+    (args,) = noaa_traced["images"]
+    unit, spans = args[5], list(args[6]) + list(args[7])
+    ranges = noaa_traced["ranges"]
+    (groups,) = _named(ranges, "noaa.image.lines.groups")
+    inside = [r for r in _named(ranges, PROBE) if _inside(r, [groups])]
+    assert len(inside) == len({max(e - s, 0) for s, e in spans
+                               if max(e - s, 0) >= unit}) >= 1
+
+
+def test_psk_lowpass_range_once_a_block(funcube_traced):
+    ranges, blocks = funcube_traced["ranges"], funcube_traced["blocks"]
+    frontend = _named(ranges, "psk.frontend")
+    lowpass = _named(ranges, "psk.frontend.lowpass")
+    assert len(lowpass) == len(frontend) == blocks
+    for r in lowpass:
+        assert _inside(r, frontend)
+
+
+def test_bank_accurate_copy_inside_the_bank_stage(tmp_path):
+    """In the bank the accurate sync's copy (`noaa.fast_rows`) sits inside
+    `noaa_bank.accurate_sync`, one a shared batch, and a channel's line
+    groups inside `noaa_bank.image`."""
+    with open(os.path.join(ROOT, "benchmarks", "configs", "noaa_apt_3sat.json")) as f:
+        cfg = json.load(f)
+    raw, _ = apt_bank.pass_bytes(8, cfg, 0.05, "cpu", 2 ** 31 + 24)
+    dec = NoaaBankDecoder(DeviceRawSource(raw, FS),
+                          [ch["offset_hz"] for ch in cfg["channels"]], device="cpu")
+    with _profile() as prof:
+        dec.channels[0].get_image()
+        dec.channels[0].get_accurate_sync()
+    ranges = _ranges(prof, tmp_path / "t.json")
+    copies = _named(ranges, "noaa.accurate_sync.copy")
+    assert len(copies) == dec.counters["noaa_bank.accurate_sync.batches"] >= 1
+    for r in copies:
+        assert _inside(r, _named(ranges, "noaa_bank.accurate_sync"))
+    assert not _named(ranges, "noaa.accurate_sync")
+    imaged = sum(u or i == 0 for i, u in enumerate(dec.useful))
+    groups = _named(ranges, "noaa.image.lines.groups")
+    assert len(groups) == imaged >= 1
+    for r in groups:
+        assert _inside(r, _named(ranges, "noaa_bank.image"))
+
+
+def test_a_collection_is_a_range(tmp_path):
+    """With the collector's own runs off, a `gc.collect()` inside a stage
+    of a session is one `host.gc` range inside that stage's and a name of
+    the program's, and counts nothing."""
+    toy = _Toy()
+    gc.disable()
+    try:
+        with _profile() as prof:
+            with toy._stage("outer"):
+                gc.collect()
+        tally, names = stages.session_counts(), stages.span_names()
+    finally:
+        gc.enable()
+    ranges = _ranges(prof, tmp_path / "t.json")
+    (collection,) = _named(ranges, "host.gc")
+    assert _inside(collection, _named(ranges, "toy.outer"))
+    assert tally == {}
+    assert names == {"toy.outer", "host.gc"}
+
+
+def test_no_profiler_no_gc_hook():
+    """With no profiler the program's calls leave no hook in
+    `gc.callbacks`, and a collection records nothing."""
+    stages.session_counts()      # end a session an earlier test left behind
+    before, names = stages.session_counts(), stages.span_names()
+    toy = _Toy()
+    with toy._stage("stage"):
+        with toy._span("stage.child"):
+            gc.collect()
+        toy._count("stage.things", 1)
+    assert stages._gc_hook not in gc.callbacks
+    assert stages.session_counts() == before
+    assert stages.span_names() == names
+
+
+def test_a_hook_left_by_a_session_goes_at_the_next_call():
+    """A session that ends with no call of the program after it leaves
+    the hook in, which records nothing; the next call, finding no
+    profiler, takes it out."""
+    toy = _Toy()
+    with _profile():
+        with toy._stage("stage"):
+            assert gc.callbacks.count(stages._gc_hook) == 1
+    assert gc.callbacks.count(stages._gc_hook) == 1
+    names = set(stages._session["names"])
+    gc.collect()
+    assert stages._session["gc"] is None and stages._session["names"] == names
+    with toy._stage("after"):
+        pass
+    assert stages._gc_hook not in gc.callbacks
